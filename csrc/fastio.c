@@ -1,8 +1,8 @@
 /* Native model-I/O for flash_viterbi_tpu.
  *
- * TPU-native replacement for the reference's L1 loader layer
+ * Replacement for the reference's L1 loader layer
  * (getAddress/InitElement, duplicated in every C file — e.g.
- * /root/reference/src/FLASH_Viterbi_multithread.c:48-95): the reference
+ * src/FLASH_Viterbi_multithread.c:48-95 of the reference): the reference
  * fscanf's one float at a time into statically-sized structs; this parser
  * mmap-reads the whole file and strtod's in a tight loop (~20x faster on
  * the K=4096 67 MB matrix files), returning a packed double buffer that

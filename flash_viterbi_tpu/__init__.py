@@ -1,4 +1,4 @@
-"""flash_viterbi_tpu — TPU-native FLASH Viterbi decoding framework.
+"""flash_viterbi_tpu — FLASH Viterbi decoding framework in JAX.
 
 A ground-up JAX/XLA/Pallas re-design with the capabilities of the reference
 FLASH-Viterbi repository (ICDE 2026, arXiv:2510.19301): fast, memory-lean,
@@ -20,7 +20,6 @@ from .algorithms import checkpoint as _checkpoint  # noqa: F401
 from .algorithms import flash as _flash  # noqa: F401
 from .algorithms import flash_bs as _flash_bs  # noqa: F401
 from .algorithms import fused as _fused  # noqa: F401
-from .algorithms import longform as _longform  # noqa: F401
 from .algorithms import sieve as _sieve  # noqa: F401
 from .algorithms import sieve_bs as _sieve_bs  # noqa: F401
 from .algorithms import sieve_dyn as _sieve_dyn  # noqa: F401

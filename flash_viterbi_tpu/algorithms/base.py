@@ -59,8 +59,7 @@ class Decoder:
     """
 
     def __init__(self, name: str, fn: Callable, static: dict, memory_fn: Callable,
-                 jittable: bool = True, batch_fn: Callable | None = None,
-                 jittable_fn: Callable | None = None):
+                 jittable: bool = True, batch_fn: Callable | None = None):
         self.name = name
         self._fn = fn
         self.static = static
@@ -70,16 +69,6 @@ class Decoder:
         # host-driven decoders set this to share one lane scheduler across
         # the whole batch instead of decoding sequences one at a time
         self.batch_fn = batch_fn
-        # optional shape-dependent jittability (auto: the chosen decoder
-        # may be host-driven only for some shapes, e.g. flash_long at
-        # dispatch-ceiling scale)
-        self._jittable_fn = jittable_fn
-
-    def jittable_for(self, K: int, T: int) -> bool:
-        """Whether this decoder may be wrapped in jax.jit at shape (K, T)."""
-        if self._jittable_fn is not None:
-            return bool(self._jittable_fn(int(K), int(T)))
-        return self.jittable
 
     def __call__(self, logA, logB, logPi, y) -> jax.Array:
         return self._fn(logA, logB, logPi, y)
@@ -132,7 +121,7 @@ def decode(
     logA, logB, logPi = put(lh.logA), put(lh.logB), put(lh.logPi)
     yd = put(np.asarray(y, dtype=np.int32))
 
-    fn = jax.jit(dec) if dec.jittable_for(lh.K, T) else dec
+    fn = jax.jit(dec) if dec.jittable else dec
 
     def issue():
         return jax.block_until_ready(fn(logA, logB, logPi, yd))

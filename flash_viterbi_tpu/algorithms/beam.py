@@ -1,4 +1,4 @@
-"""Plain beam-search Viterbi (full tables), TPU-native.
+"""Plain beam-search Viterbi (full tables).
 
 Capability counterpart of the reference's ``SIEVE_BEAMSEARCH.beam_search``
 (``Base_line/Python implementations/sieve_beam_search.py:267-347``, no C
@@ -16,39 +16,26 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from ..ops.pallas.beam import beam_scan
 from .base import Decoder, register
 from .flash_bs import beam_step, beam_topk
 
 
-def beam_decode(logA, logB, logPi, y, beam_width: int,
-                use_pallas: bool | str = "auto"):
+def beam_decode(logA, logB, logPi, y, beam_width: int):
     T = y.shape[0]
     K = int(logA.shape[0])
     B = min(int(beam_width), K)  # clamp: beam cannot exceed K
     emits = logB[:, y].T  # (T, K)
     vals0, states0 = beam_topk(logPi + emits[0], B)
 
-    if use_pallas == "auto":
-        # XLA measured faster than the beam kernel on hardware at the
-        # headline config (see flash_bs.flash_bs_decode) — same verdict
-        use_pallas = False
-    if use_pallas:
-        from .flash import _pallas_interpret
+    def step(carry, emit):
+        vals, states = carry
+        full, slot = beam_step(vals, states, logA, emit)
+        nv, ns = beam_topk(full, B)
+        return (nv, ns), (ns, slot[ns])
 
-        hist, slot_ptrs = beam_scan(logA, emits[1:], vals0, states0,
-                                    interpret=_pallas_interpret())
-        states_hist = jnp.concatenate([states0[None], hist])  # (T, B)
-    else:
-        def step(carry, emit):
-            vals, states = carry
-            full, slot = beam_step(vals, states, logA, emit)
-            nv, ns = beam_topk(full, B)
-            return (nv, ns), (ns, slot[ns])
-
-        (_, _), (states_hist, slot_ptrs) = jax.lax.scan(step, (vals0, states0),
-                                                        emits[1:])
-        states_hist = jnp.concatenate([states0[None], states_hist])  # (T, B)
+    (_, _), (states_hist, slot_ptrs) = jax.lax.scan(step, (vals0, states0),
+                                                    emits[1:])
+    states_hist = jnp.concatenate([states0[None], states_hist])  # (T, B)
 
     end_slot = jnp.asarray(0, jnp.int32)  # beam is score-sorted: slot 0 best
 
@@ -72,11 +59,8 @@ def _memory(K: int, T: int, beam_width: int = 64, **_) -> int:
 
 
 @register("beam")
-def _build(beam_width: int = 64, use_pallas: bool | str = "auto",
-           **static) -> Decoder:
+def _build(beam_width: int = 64, **static) -> Decoder:
     def fn(logA, logB, logPi, y):
-        return beam_decode(logA, logB, logPi, y, beam_width=beam_width,
-                           use_pallas=use_pallas)
+        return beam_decode(logA, logB, logPi, y, beam_width=beam_width)
 
-    return Decoder("beam", fn, {"beam_width": beam_width,
-                                "use_pallas": use_pallas, **static}, _memory)
+    return Decoder("beam", fn, {"beam_width": beam_width, **static}, _memory)

@@ -6,10 +6,11 @@ Capability parity with ``Base_line/C implementations/checkpoint Viterbi.c``
 each segment (storing that segment's pointer table only) and backtracks,
 sequentially from the last segment to the first.
 
-TPU shape discipline: time is padded to ``C*step`` with masked no-op steps
+Shape discipline: time is padded to ``C*step`` with masked no-op steps
 and identity pointer rows, so both phases are fixed-shape ``lax.scan``s
-(outer scan over segments, inner over steps).  This is also the template the
-long-T path uses (``jax.checkpoint``-style recompute without dynamic shapes).
+(outer scan over segments, inner over steps) — ``jax.checkpoint``-style
+recompute without dynamic shapes.  It is the long-T single-card decoder:
+no (T, K) pointer table exists at any point.
 """
 
 from __future__ import annotations
@@ -20,86 +21,7 @@ import jax
 import jax.numpy as jnp
 
 from ..ops import maxplus as mp
-from ..ops.pallas.backtrack import backtrack_pallas
-from ..ops.pallas.maxplus import (
-    emitgather_supported,
-    kernel_supported,
-    maxplus_scan,
-    maxplus_scan_emitgather,
-)
 from .base import Decoder, register
-
-
-def snapshot_step(T: int) -> int:
-    """Snapshot spacing the kernel path actually runs: √T chunks, but
-    per-kernel-call overhead dominates past ~100 chunks on the remote
-    runtime — the call count is capped at long T.  Exposed so working-set
-    models (``algorithms.auto``) see the same figure the decode uses."""
-    return max(int(math.floor(math.sqrt(max(T, 1)))), min(1024, T // 64))
-
-
-def checkpoint_decode_pallas(logA, logB, logPi, y, step: int = 0):
-    """√T-checkpoint decode on the fused kernel.
-
-    Forward: one kernel call per chunk, keeping only the C chunk-boundary
-    delta snapshots (pointer output of the forward calls is discarded —
-    its HBM write traffic is K*4 bytes/step, noise next to the K²*4-byte
-    logA stream).  Backward: per chunk, re-run the kernel from the
-    snapshot and backtrack inside the chunk.  O(K*(C + step)) live memory;
-    the emission table is gathered in-kernel when it fits VMEM, so no
-    (T, K) emissions buffer exists at any point — this is the long-T
-    single-chip path (capability of ``checkpoint Viterbi.c:176-251``,
-    rebuilt for TPU).
-    """
-    T = y.shape[0]
-    K = logA.shape[0]
-    if step <= 0:
-        step = snapshot_step(T)
-    from .flash import _pallas_interpret
-
-    interp = _pallas_interpret()
-    # the eg kernel keeps the chunk's symbols in SMEM, whose windows are
-    # lane-padded (step*128*4 bytes) — 1024 steps is the 512 KB sweet spot
-    eg = emitgather_supported(K, logB.shape[1]) and step <= 1024
-    logBT = jnp.transpose(logB)
-
-    bounds = list(range(0, T - 1, step)) + [T - 1]  # chunk edges (times)
-
-    def run_chunk(d0, lo, hi, _ys=None):
-        """Kernel over steps lo+1..hi; returns (delta_hi, ptrs)."""
-        if eg:
-            ys = jax.lax.dynamic_slice(y, (lo + 1,), (hi - lo,))[:, None]
-            dfin, ptrs = maxplus_scan_emitgather(logA, logBT, ys, d0[None, :],
-                                                 interpret=interp)
-        else:
-            sym = jax.lax.dynamic_slice(y, (lo + 1,), (hi - lo,))
-            emits = logB[:, sym].T[:, None, :]
-            dfin, ptrs = maxplus_scan(logA, emits, d0[None, :], interpret=interp)
-        return dfin[0], ptrs[:, 0, :]
-
-    # forward: snapshots at chunk starts
-    emit0 = logB[:, y[0]]
-    d = logPi + emit0
-    snaps = [d]
-    for lo, hi in zip(bounds[:-1], bounds[1:]):
-        d, _ = run_chunk(d, lo, hi)
-        snaps.append(d)
-
-    last = mp.argmax_final(snaps[-1])
-
-    # backward: per-chunk recompute + backtrack
-    state = last
-    pieces = []
-    for (lo, hi), snap in zip(reversed(list(zip(bounds[:-1], bounds[1:]))),
-                              reversed(snaps[:-1])):
-        _, ptrs = run_chunk(snap, lo, hi)
-        # chunk-streamed walk: the XLA backtrack's dependent row reads cost
-        # ~step HBM latencies per chunk, the kernel one streamed DMA pass
-        seg = backtrack_pallas(ptrs, state, interpret=interp)  # times lo..hi
-        pieces.append(seg[1:])
-        state = seg[0]
-    pieces.append(state[None])
-    return jnp.concatenate(pieces[::-1])
 
 
 def checkpoint_decode(logA, logB, logPi, y, step: int = 0):
@@ -180,16 +102,8 @@ def _memory(K: int, T: int, step: int = 0, **_) -> int:
 
 
 @register("checkpoint")
-def _build(step: int = 0, use_pallas: bool | str = "auto", **static) -> Decoder:
+def _build(step: int = 0, **static) -> Decoder:
     def fn(logA, logB, logPi, y):
-        up = use_pallas
-        if up == "auto":
-            up = jax.default_backend() == "tpu"
-        if up and not kernel_supported(logA.shape[0]):
-            up = False  # K not tileable by the kernel; fall back cleanly
-        if up:
-            return checkpoint_decode_pallas(logA, logB, logPi, y, step=step)
         return checkpoint_decode(logA, logB, logPi, y, step=step)
 
-    return Decoder("checkpoint", fn,
-                   {"step": step, "use_pallas": use_pallas, **static}, _memory)
+    return Decoder("checkpoint", fn, {"step": step, **static}, _memory)

@@ -1,4 +1,4 @@
-"""FLASH Viterbi, TPU-native: anchored two-phase segmented decode.
+"""FLASH Viterbi: anchored two-phase segmented decode.
 
 The reference (``src/FLASH_Viterbi_multithread.c``) runs one sequential
 multi-midpoint forward pass that anchors N-1 interior states (phase 1,
@@ -6,25 +6,28 @@ multi-midpoint forward pass that anchors N-1 interior states (phase 1,
 segments until every position is resolved (phase 2, ``worker``/``nvviter``
 :204-308).
 
-TPU redesign (SURVEY.md §7): the dynamic work queue disappears.
+Redesign (SURVEY.md §7): the dynamic work queue disappears.
 
 * **Phase 1** is a ``lax.scan`` carrying ``(delta, anchor-pointer planes)``;
   plane propagation schedules are static booleans precomputed from (T, N).
 * **Phase 2 "pointer" mode** (default, fastest): every segment is decoded
-  *in one round* by a vmapped forced-boundary forward pass that materializes
-  its own pointer table and backtracks locally.  Memory O(T*K/N) per segment
-  — sharded away under ``shard_map`` (see ``parallel.sharded``).
+  *in one round* by a lane-batched forced-boundary forward pass that
+  materializes its own pointer table and backtracks locally.  Memory
+  O(T*K/N) per segment — sharded away under ``shard_map`` (see
+  ``parallel.sharded``).
 * **Phase 2 "lean" mode**: the reference's binary splitting, batched — the
-  splitting tree is static, so each level is ONE vmapped single-midpoint
-  pass over all intervals of that level (carrying only (delta, t2) — O(K)
-  per interval, the reference's memory profile) with no scheduler at all.
+  splitting tree is static, so each level is ONE lane-batched
+  single-midpoint pass over all intervals of that level (carrying only
+  (delta, t2) — O(K) per interval, the reference's memory profile) with no
+  scheduler at all.
 
-Both modes produce the identical path (same argmax contract).
+Every trellis step goes through ``ops.maxplus.maxplus_lanes``, so the
+segments (or intervals) of a round share one ``logA`` stream when the
+Triton step runs.  Both modes produce the identical path (same argmax
+contract).
 """
 
 from __future__ import annotations
-
-import functools
 
 import numpy as np
 
@@ -32,21 +35,13 @@ import jax
 import jax.numpy as jnp
 
 from ..ops import maxplus as mp
-from ..ops.pallas.backtrack import (argmax_walk_pallas, argmax_walk_supported,
-                                    backtrack_pallas_batched)
-from ..ops.pallas.maxplus import (kernel_supported, maxplus_scan,
-                                  maxplus_scan_deltas)
 from .base import Decoder, register
 
-# lean-path shape knobs, shared with the working-set model in
-# ``algorithms.auto`` (changing one changes both):
-LEAN_CHUNK = 64   # time-chunk of the lean rounds' streamed kernel calls
-LEAN_LEAF = 64    # hybrid lean: split intervals down to this length
-LEAF_LANES = 32   # leaf decode lanes per kernel call (bounds live pointers)
-
-
-def _pallas_interpret() -> bool:
-    return jax.default_backend() != "tpu"
+# hybrid lean: split intervals down to this length, then decode the leaves
+# in lane groups of LEAF_LANES (bounds the live pointer tables); shared
+# with the working-set model in ``algorithms.auto``
+LEAN_LEAF = 64
+LEAF_LANES = 32
 
 
 def flash_midpoints(L: int, R: int, N: int) -> list[int]:
@@ -79,15 +74,13 @@ def segment_layout(mids: list[int], T: int) -> tuple[list[int], list[int], int]:
     return starts, lens, max(lens)
 
 
-def prop_schedule(mids: list[int], T: int, j0: int = 1,
-                  j1: int | None = None) -> np.ndarray:
-    """(j1-j0, P) bool: True where pointer plane p PROPAGATES (j > mid+1)
-    rather than records, for trellis steps j in [j0, j1) (reference
+def prop_schedule(mids: list[int], T: int) -> np.ndarray:
+    """(T-1, P) bool: True where pointer plane p PROPAGATES (j > mid+1)
+    rather than records, for trellis steps j in [1, T) (reference
     :163,176-179,242).  Vectorized — the naive per-(j, plane) list
     comprehension is O(T*P) Python work at trace time."""
-    j1 = T if j1 is None else j1
     mids_a = np.asarray(mids, dtype=np.int64).reshape(1, -1)
-    return np.arange(j0, j1, dtype=np.int64)[:, None] > mids_a + 1
+    return np.arange(1, T, dtype=np.int64)[:, None] > mids_a + 1
 
 
 def split_tree(segments: list[tuple[int, int]]) -> list[list[tuple[int, int, int]]]:
@@ -140,60 +133,8 @@ def split_tree_leaves(segments: list[tuple[int, int]], min_leaf: int = 0):
 # Phase 1: multi-anchor forward pass
 # ---------------------------------------------------------------------------
 
-def phase1_anchors_pallas(logA, logPi, emits, mids: list[int]):
-    """Phase 1 on the fused kernel: one pallas scan produces every pointer
-    row, then ONE chunk-streamed backtrack resolves the anchors.
-
-    The reference's N-1 plane-propagation recurrence (:163-179) computes,
-    per current state k, the best-path state at each midpoint time; its
-    final readout ``planes[:, last]`` is therefore exactly
-    ``path[mids]`` of the pointer-table backtrack from ``last`` — the
-    same argmax pointers drive both, so the values are bit-identical
-    (ties included).  The backtrack kernel walks the table in one
-    HBM-bandwidth pass (~0.1 ms at T=256) where the fold scan paid a
-    T-step sequential gather chain (~3.5 ms measured at the headline
-    config)."""
-    T, K = emits.shape
-    P = len(mids)
-    delta0 = logPi + emits[0]
-    dfin, ptrs = maxplus_scan(logA, emits[1:][:, None, :], delta0[None, :],
-                              interpret=_pallas_interpret())
-    last = mp.argmax_final(dfin[0])
-    if not P:
-        return last, jnp.zeros((0,), jnp.int32)
-    path = backtrack_pallas_batched(ptrs, last[None],
-                                    interpret=_pallas_interpret())[0]
-    return last, path[jnp.asarray(mids)]
-
-
-def phase1_anchors_chunked(logA, logPi, emits, mids: list[int],
-                           chunk: int = LEAN_CHUNK):
-    """Phase 1 on the fused kernel with O(N*K + chunk*K) memory: chunked
-    kernel calls, pointer rows folded into the anchor planes immediately."""
-    T, K = emits.shape
-    P = len(mids)
-    d = logPi + emits[0]
-    planes = jnp.zeros((P, K), dtype=jnp.int32)
-    for c0 in range(0, T - 1, chunk):
-        c1 = min(c0 + chunk, T - 1)
-        dC, ptrs = maxplus_scan(logA, emits[c0 + 1:c1 + 1][:, None, :],
-                                d[None, :], interpret=_pallas_interpret())
-        d = dC[0]
-        if P:
-            prop = jnp.asarray(prop_schedule(mids, T, j0=c0 + 1, j1=c1 + 1))
-
-            def fold(pl, x):
-                row, pr = x
-                moved = jnp.take_along_axis(pl, row[None, :], axis=1)
-                return jnp.where(pr[:, None], moved, row[None, :]), None
-
-            planes, _ = jax.lax.scan(fold, planes, (ptrs[:, 0, :], prop))
-    last = mp.argmax_final(d)
-    anchors = planes[:, last] if P else jnp.zeros((0,), jnp.int32)
-    return last, anchors
-
-
-def phase1_anchors(logA, logPi, emits, mids: list[int]):
+def phase1_anchors(logA, logPi, emits, mids: list[int],
+                   use_kernel: bool | str = "auto"):
     """One forward pass resolving the final state and all anchor states.
 
     Returns (last_state, anchors (N-1,) int32).  Equivalent to
@@ -209,7 +150,8 @@ def phase1_anchors(logA, logPi, emits, mids: list[int]):
     def step(carry, x):
         delta, planes = carry
         emit, pr = x
-        delta_new, arg = mp.maxplus_step(delta, logA, emit)
+        val, arg = mp.maxplus_lanes(delta[None], logA, use_kernel)
+        delta_new, arg = val[0] + emit, arg[0]
         if P:
             moved = jnp.take_along_axis(planes, arg[None, :], axis=1)
             planes = jnp.where(pr[:, None], moved, arg[None, :])
@@ -225,102 +167,61 @@ def phase1_anchors(logA, logPi, emits, mids: list[int]):
 # Phase 2, pointer mode: vmapped per-segment decode
 # ---------------------------------------------------------------------------
 
-def _masked_forward_ptrs(logA, seg_emits, delta0, nsteps):
-    """Forward over Lmax-1 steps; steps beyond a segment's true length are
-    identity (pointer row = iota) so a uniform backtrack works."""
-    Lmax, K = seg_emits.shape
-    iota = jnp.arange(K, dtype=jnp.int32)
-
-    def step(delta, x):
-        emit, valid = x
-        d, p = mp.maxplus_step(delta, logA, emit)
-        d = jnp.where(valid, d, delta)
-        p = jnp.where(valid, p, iota)
-        return d, p
-
-    valid = jnp.arange(1, Lmax) <= nsteps  # nsteps = len-1 real steps
-    _, ptrs = jax.lax.scan(step, delta0, (seg_emits[1:], valid))
-    return ptrs  # (Lmax-1, K)
-
-
-def decode_segments_pointer(logA, logB, logPi, emits, starts, lens, init_states,
-                            end_states, Lmax: int, T: int):
-    """Decode N forced-boundary segments in parallel; returns (N, Lmax) paths.
+def decode_segments_pointer(logA, logPi, emits, starts, lens, init_states,
+                            end_states, Lmax: int, T: int,
+                            use_kernel: bool | str = "auto"):
+    """Decode N forced-boundary segments as N lanes; returns (N, Lmax) paths.
 
     ``init_states[s]`` is the resolved state at ``starts[s]-1`` (ignored for
     segment 0, which starts from ``logPi``); ``end_states[s]`` the resolved
-    state at ``starts[s]+lens[s]-1``.
+    state at ``starts[s]+lens[s]-1``.  Steps beyond a segment's true length
+    keep its carry and record identity pointer rows, so one uniform
+    backtrack serves every lane.
     """
-    N = starts.shape[0]
-    idx = jnp.minimum(starts[:, None] + jnp.arange(Lmax)[None, :], T - 1)
-    seg_emits = emits[idx]  # (N, Lmax, K)
-
-    first = jnp.arange(N) == 0
-    d0 = jnp.where(first[:, None], logPi[None, :], logA[init_states]) + seg_emits[:, 0]
-
-    ptrs = jax.vmap(_masked_forward_ptrs, in_axes=(None, 0, 0, 0))(
-        logA, seg_emits, d0, lens - 1
-    )
-    paths = jax.vmap(mp.backtrack)(ptrs, end_states)  # (N, Lmax)
-    return paths
-
-
-def decode_segments_pointer_pallas(logA, logPi, emits, starts, lens, init_states,
-                                   end_states, Lmax: int, T: int):
-    """Pallas phase 2: ONE batched kernel decodes all N segments — logA is
-    streamed once per step for the whole batch (the XLA vmap re-reads it
-    per segment).
-
-    The N-lane scan is VPU-bound (~60% of its per-cell work was the
-    in-scan argmax bookkeeping — 9.3 ms of the round-3 19.3 ms headline),
-    so the default pipeline is recompute-on-backtrack (SURVEY §7): the
-    scan stores the fp32 carry history, and the masked walk re-derives
-    each walked step's argmax from one logA column — bit-identical paths
-    (same fp32 sums; invalid ragged steps keep the lane state, exactly the
-    stored path's identity pointer rows)."""
     N = starts.shape[0]
     K = logA.shape[0]
     idx = jnp.minimum(starts[:, None] + jnp.arange(Lmax)[None, :], T - 1)
     seg_emits = emits[idx]  # (N, Lmax, K)
+
     first = jnp.arange(N) == 0
     d0 = jnp.where(first[:, None], logPi[None, :], logA[init_states]) + seg_emits[:, 0]
     emitsN = jnp.transpose(seg_emits[:, 1:, :], (1, 0, 2))  # (Lmax-1, N, K)
     valid = jnp.arange(1, Lmax)[:, None] <= (lens - 1)[None, :]  # (Lmax-1, N)
-    if argmax_walk_supported(N, K):
-        _, deltas = maxplus_scan_deltas(logA, emitsN, d0,
-                                        interpret=_pallas_interpret())
-        return argmax_walk_pallas(deltas, jnp.transpose(logA), end_states,
-                                  valid=valid,
-                                  interpret=_pallas_interpret())  # (N, Lmax)
-    _, ptrs = maxplus_scan(logA, emitsN, d0, interpret=_pallas_interpret())
     iota = jnp.arange(K, dtype=jnp.int32)
-    ptrs = jnp.where(valid[:, :, None], ptrs, iota[None, None, :])
-    # chunk-streamed walk: all N lanes walk in ONE kernel (never
-    # vmap-of-pallas_call — Mosaic rejects the batched scalar block)
-    return backtrack_pallas_batched(ptrs, end_states,
-                                    interpret=_pallas_interpret())  # (N, Lmax)
+
+    def step(delta, x):
+        emit, v = x
+        val, arg = mp.maxplus_lanes(delta, logA, use_kernel)
+        return (jnp.where(v[:, None], val + emit, delta),
+                jnp.where(v[:, None], arg, iota[None, :]))
+
+    _, ptrs = jax.lax.scan(step, d0, (emitsN, valid))  # (Lmax-1, N, K)
+    return jax.vmap(mp.backtrack, in_axes=(1, 0))(ptrs, end_states)
 
 
 # ---------------------------------------------------------------------------
 # Phase 2, lean mode: batched binary splitting (O(K) per interval)
 # ---------------------------------------------------------------------------
 
-def _lean_round(logA, logB, logPi, emits, ans, intervals: list[tuple[int, int, int]], T: int):
-    """One splitting round: vmapped single-midpoint decode of all intervals.
+def _lean_round(logA, logPi, emits, ans, intervals: list[tuple[int, int, int]],
+                T: int, use_kernel: bool | str = "auto"):
+    """One splitting round: every interval of the round is one lane of a
+    single-midpoint forward pass.
 
     Equivalent to running ``nvviter(L, R, mid)`` (reference :204-262) for
     every interval of the round, resolving ``ans[mid]``.
     """
     S = len(intervals)
+    K = emits.shape[1]
     Ls = np.asarray([iv[0] for iv in intervals])
     Rs = np.asarray([iv[1] for iv in intervals])
     mids = np.asarray([iv[2] for iv in intervals])
     Lmax = int((Rs - Ls).max()) + 1
 
     idx = np.minimum(Ls[:, None] + np.arange(Lmax)[None, :], T - 1)
-    valid = np.arange(1, Lmax)[None, :] <= (Rs - Ls)[:, None]  # (S, Lmax-1)
+    valid = np.arange(1, Lmax)[:, None] <= (Rs - Ls)[None, :]  # (Lmax-1, S)
     # t2 propagates (rather than records) once j > mid+1 (reference :242)
-    prop = (Ls[:, None] + np.arange(1, Lmax)[None, :]) > (mids[:, None] + 1)
+    prop = (Ls[None, :] + np.arange(1, Lmax)[:, None]) > (mids[None, :] + 1)
 
     seg_emits = emits[jnp.asarray(idx)]  # (S, Lmax, K)
     is_head = jnp.asarray(Ls == 0)
@@ -328,97 +229,38 @@ def _lean_round(logA, logB, logPi, emits, ans, intervals: list[tuple[int, int, i
     d0 = jnp.where(is_head[:, None], logPi[None, :], logA[prev_state]) + seg_emits[:, 0]
     t2_0 = jnp.where(
         is_head[:, None],
-        jnp.zeros((S, emits.shape[1]), jnp.int32),
-        jnp.broadcast_to(prev_state[:, None].astype(jnp.int32), (S, emits.shape[1])),
+        jnp.zeros((S, K), jnp.int32),
+        jnp.broadcast_to(prev_state[:, None].astype(jnp.int32), (S, K)),
     )
 
-    def one(seg_e, d0_s, t2_s, valid_s, prop_s):
-        def step(carry, x):
-            delta, t2 = carry
-            emit, v, pr = x
-            d, arg = mp.maxplus_step(delta, logA, emit)
-            t2_new = jnp.where(pr, t2[arg], arg)
-            delta = jnp.where(v, d, delta)
-            t2 = jnp.where(v, t2_new, t2)
-            return (delta, t2), None
+    def step(carry, x):
+        delta, t2 = carry
+        emit, v, pr = x
+        val, arg = mp.maxplus_lanes(delta, logA, use_kernel)
+        t2_new = jnp.where(pr[:, None], jnp.take_along_axis(t2, arg, axis=1), arg)
+        return (jnp.where(v[:, None], val + emit, delta),
+                jnp.where(v[:, None], t2_new, t2)), None
 
-        (delta, t2), _ = jax.lax.scan(step, (d0_s, t2_s), (seg_e[1:], valid_s, prop_s))
-        return t2
-
-    t2 = jax.vmap(one)(seg_emits, d0, t2_0, jnp.asarray(valid), jnp.asarray(prop))
+    xs = (jnp.transpose(seg_emits[:, 1:, :], (1, 0, 2)), jnp.asarray(valid),
+          jnp.asarray(prop))
+    (_, t2), _ = jax.lax.scan(step, (d0, t2_0), xs)
     end_states = ans[jnp.asarray(Rs)]
     resolved = jnp.take_along_axis(t2, end_states[:, None].astype(jnp.int32), axis=1)[:, 0]
     return ans.at[jnp.asarray(mids)].set(resolved)
 
 
-def _lean_round_pallas(logA, logB, logPi, emits, ans, intervals, T: int,
-                       chunk: int = LEAN_CHUNK):
-    """Lean round on the fused kernel, O(S*K + chunk*K) live memory.
-
-    Intervals are grouped by exact length; each group runs chunked kernel
-    calls (delta carried across chunks) and folds the pointer rows into the
-    t2 planes immediately — the reference's in-scan t2 recurrence
-    (:227-246) expressed as a post-chunk gather scan, so the full pointer
-    table never exists.
-    """
-    K = logA.shape[0]
-    out_ans = ans
-    for length in sorted({iv[1] - iv[0] + 1 for iv in intervals}):
-        group = [iv for iv in intervals if iv[1] - iv[0] + 1 == length]
-        S = len(group)
-        Ls = np.asarray([iv[0] for iv in group])
-        mids = np.asarray([iv[2] for iv in group])
-
-        is_head = jnp.asarray(Ls == 0)
-        prev_state = ans[jnp.asarray(np.maximum(Ls - 1, 0))]
-        e0 = emits[jnp.asarray(Ls)]  # (S, K)
-        d = jnp.where(is_head[:, None], logPi[None, :], logA[prev_state]) + e0
-        t2 = jnp.where(
-            is_head[:, None],
-            jnp.zeros((S, K), jnp.int32),
-            jnp.broadcast_to(prev_state[:, None].astype(jnp.int32), (S, K)),
-        )
-
-        steps = length - 1
-        for c0 in range(0, steps, chunk):
-            c1 = min(c0 + chunk, steps)
-            idx = jnp.asarray(Ls[None, :] + np.arange(c0 + 1, c1 + 1)[:, None])
-            emitsC = emits[idx]  # (c, S, K)
-            d, ptrs = maxplus_scan(logA, emitsC, d,
-                                   interpret=_pallas_interpret())
-            # fold pointer rows into t2: record while j <= mid+1, then
-            # propagate (reference :242)
-            rec = jnp.asarray(
-                (Ls[None, :] + np.arange(c0 + 1, c1 + 1)[:, None])
-                <= (mids[None, :] + 1)
-            )  # (c, S)
-
-            def fold(t2c, x):
-                row, r = x  # (S, K), (S,)
-                prop = jnp.take_along_axis(t2c, row, axis=1)
-                return jnp.where(r[:, None], row, prop), None
-
-            t2, _ = jax.lax.scan(fold, t2, (ptrs, rec))
-
-        end_states = ans[jnp.asarray([iv[1] for iv in group])]
-        resolved = jnp.take_along_axis(t2, end_states[:, None].astype(jnp.int32),
-                                       axis=1)[:, 0]
-        out_ans = out_ans.at[jnp.asarray(mids)].set(resolved)
-    return out_ans
-
-
 def _decode_leaves(logA, logPi, emits, ans, leaves, T: int,
-                   use_pallas: bool, group_lanes: int = LEAF_LANES):
+                   use_kernel: bool | str = "auto",
+                   group_lanes: int = LEAF_LANES):
     """Forced-boundary pointer decode of the splitting tree's leaves.
 
     Both endpoints of every leaf are resolved once the rounds complete, so
     each leaf's interior is one pointer pass + backtrack.  Lanes are capped
-    at ``group_lanes`` per kernel call, bounding live pointer memory to
+    at ``group_lanes`` per pass, bounding live pointer memory to
     O(leaf_len * group_lanes * K) — the hybrid that closes lean mode's
     recompute gap (binary splitting costs a full re-scan per level; leaves
     cost one).
     """
-    K = logA.shape[0]
     out = ans
     for length in sorted({r - l + 1 for l, r in leaves}):
         group = [iv for iv in leaves if iv[1] - iv[0] + 1 == length]
@@ -434,23 +276,13 @@ def _decode_leaves(logA, logPi, emits, ans, leaves, T: int,
             idx = jnp.asarray(Ls[None, :] + np.arange(1, length)[:, None])
             emitsN = emits[idx]  # (length-1, S, K)
             ends = ans[jnp.asarray(Rs)]
-            if use_pallas and argmax_walk_supported(len(sub), K):
-                # recompute-on-backtrack (see decode_segments_pointer_pallas)
-                _, deltas = maxplus_scan_deltas(logA, emitsN, d0,
-                                                interpret=_pallas_interpret())
-                paths = argmax_walk_pallas(deltas, jnp.transpose(logA), ends,
-                                           interpret=_pallas_interpret())
-            elif use_pallas:
-                _, ptrs = maxplus_scan(logA, emitsN, d0,
-                                       interpret=_pallas_interpret())
-                paths = backtrack_pallas_batched(
-                    ptrs, ends, interpret=_pallas_interpret())  # (S, length)
-            else:
-                def stepf(d, e):
-                    return jax.vmap(mp.maxplus_step, in_axes=(0, None, 0))(d, logA, e)
 
-                _, ptrs = jax.lax.scan(stepf, d0, emitsN)
-                paths = jax.vmap(mp.backtrack, in_axes=(1, 0))(ptrs, ends)
+            def stepf(d, e):
+                val, arg = mp.maxplus_lanes(d, logA, use_kernel)
+                return val + e, arg
+
+            _, ptrs = jax.lax.scan(stepf, d0, emitsN)
+            paths = jax.vmap(mp.backtrack, in_axes=(1, 0))(ptrs, ends)
             pos = jnp.asarray(Ls)[:, None] + jnp.arange(length)[None, :]
             out = out.at[pos.reshape(-1)].set(paths.reshape(-1))
     return out
@@ -463,28 +295,19 @@ def _decode_leaves(logA, logPi, emits, ans, leaves, T: int,
 def flash_decode(logA, logB, logPi, y, num_segments: int = 8, mode: str = "pointer",
                  use_pallas: bool | str = "auto", precision: str = "fp32",
                  lean_leaf: int = LEAN_LEAF):
+    """FLASH decode of one sequence.  ``use_pallas`` chooses the Triton
+    step for every lane-batched trellis step (``ops.maxplus.use_kernel_for``:
+    "auto", True or False)."""
     if precision == "bf16":  # approximate fast mode (see algorithms.fused)
         logA = logA.astype(jnp.bfloat16)
     T = y.shape[0]
-    K = logA.shape[0]
     N = int(num_segments)
     if N < 1 or T < 2 * N:
         N = max(1, min(N, T // 2)) or 1
     emits = logB[:, y].T  # (T, K)
 
-    if use_pallas == "auto":
-        use_pallas = jax.default_backend() == "tpu"
-    if use_pallas and not kernel_supported(K):
-        use_pallas = False  # K not tileable by the kernel; fall back cleanly
-
     mids = flash_midpoints(0, T - 1, N) if N > 1 else []
-    if use_pallas and mode == "pointer":
-        last, anchors = phase1_anchors_pallas(logA, logPi, emits, mids)
-    elif use_pallas:
-        # lean mode: keep phase 1 at O(N*K) memory too
-        last, anchors = phase1_anchors_chunked(logA, logPi, emits, mids)
-    else:
-        last, anchors = phase1_anchors(logA, logPi, emits, mids)
+    last, anchors = phase1_anchors(logA, logPi, emits, mids, use_pallas)
 
     starts_l, lens_l, Lmax = segment_layout(mids, T)
     if mode == "pointer":
@@ -492,14 +315,9 @@ def flash_decode(logA, logB, logPi, y, num_segments: int = 8, mode: str = "point
         lens = jnp.asarray(lens_l, jnp.int32)
         init_states = jnp.concatenate([jnp.zeros((1,), jnp.int32), anchors])
         end_states = jnp.concatenate([anchors, last[None]])
-        if use_pallas:
-            paths = decode_segments_pointer_pallas(
-                logA, logPi, emits, starts, lens, init_states, end_states, Lmax, T
-            )
-        else:
-            paths = decode_segments_pointer(
-                logA, logB, logPi, emits, starts, lens, init_states, end_states, Lmax, T
-            )
+        paths = decode_segments_pointer(
+            logA, logPi, emits, starts, lens, init_states, end_states, Lmax,
+            T, use_pallas)
         pos = starts[:, None] + jnp.arange(Lmax)[None, :]
         pos = jnp.where(jnp.arange(Lmax)[None, :] < lens[:, None], pos, T)
         out = jnp.zeros((T,), jnp.int32).at[pos.reshape(-1)].set(
@@ -515,13 +333,9 @@ def flash_decode(logA, logB, logPi, y, num_segments: int = 8, mode: str = "point
         segments = [(s, s + ln - 1) for s, ln in zip(starts_l, lens_l)]
         rounds, leaves = split_tree_leaves(segments, min_leaf=max(0, lean_leaf))
         for rnd in rounds:
-            if use_pallas:
-                ans = _lean_round_pallas(logA, logB, logPi, emits, ans, rnd, T)
-            else:
-                ans = _lean_round(logA, logB, logPi, emits, ans, rnd, T)
+            ans = _lean_round(logA, logPi, emits, ans, rnd, T, use_pallas)
         if leaves:
-            ans = _decode_leaves(logA, logPi, emits, ans, leaves, T,
-                                 use_pallas=bool(use_pallas))
+            ans = _decode_leaves(logA, logPi, emits, ans, leaves, T, use_pallas)
         return ans
 
     raise ValueError(f"unknown flash mode {mode!r}")

@@ -1,8 +1,8 @@
-"""FLASH-BS Viterbi, TPU-native: top-k beam pruning over the anchored decode.
+"""FLASH-BS Viterbi: top-k beam pruning over the anchored decode.
 
 The reference (``src/FLASH_BS_Viterbi_multithread.c``) maintains the beam as
 a size-B min-heap with sequential insert/replace-min ops (:50-211) — a CPU
-memory-frugality device, not semantics.  TPU redesign (SURVEY.md §7): the
+memory-frugality device, not semantics.  Redesign (SURVEY.md §7): the
 beam is ``jax.lax.top_k`` of the dense score vector; one step gathers the B
 beam rows of ``logA`` and does a (B, K) max-plus sweep — O(K*B) work per
 step with fully static shapes.
@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from .base import Decoder, register
 from .flash import flash_midpoints, prop_schedule, segment_layout
@@ -52,8 +51,7 @@ def beam_step(vals, states, logA, emit):
     return jnp.max(scores, axis=0) + emit, jnp.argmax(scores, axis=0).astype(jnp.int32)
 
 
-def _phase1_beam(logA, logPi, emits, mids, B: int,
-                 use_pallas: bool = False, interpret: bool = False):
+def _phase1_beam(logA, logPi, emits, mids, B: int):
     """Multi-anchor beam forward pass (reference nvviterNdivide :295-399)."""
     T, K = emits.shape
     P = len(mids)
@@ -61,20 +59,6 @@ def _phase1_beam(logA, logPi, emits, mids, B: int,
     vals0, states0 = beam_topk(full0, B)
     planes0 = jnp.full((P, B), -1, dtype=jnp.int32)
     prop = prop_schedule(mids, T)
-
-    if use_pallas:
-        from ..ops.pallas.beam import beam_scan, beam_scan_planes
-
-        if T == 1:  # zero-step scan: the XLA path's empty-scan semantics
-            return states0[0], planes0[:, 0] if P else jnp.zeros((0,), jnp.int32)
-        if P:
-            hist, _slots, planes = beam_scan_planes(
-                logA, emits[1:], vals0, states0,
-                jnp.asarray(prop.astype(np.int32)), interpret=interpret)
-            return hist[-1][0], planes[:, 0]
-        hist, _slots = beam_scan(logA, emits[1:], vals0, states0,
-                                 interpret=interpret)
-        return hist[-1][0], jnp.zeros((0,), jnp.int32)
 
     def step(carry, x):
         vals, states, planes = carry
@@ -136,8 +120,7 @@ def _segment_beam(logA, logPi, seg_emits, init_state, is_first, end_state, nstep
     return jnp.where(found, path, -1)
 
 
-def flash_bs_decode(logA, logB, logPi, y, beam_width: int, num_segments: int = 8,
-                    use_pallas: bool | str = "auto"):
+def flash_bs_decode(logA, logB, logPi, y, beam_width: int, num_segments: int = 8):
     T = y.shape[0]
     K = int(logA.shape[0])
     B = min(int(beam_width), K)  # clamp: beam cannot exceed K
@@ -146,22 +129,8 @@ def flash_bs_decode(logA, logB, logPi, y, beam_width: int, num_segments: int = 8
         N = max(1, min(N, T // 2)) or 1
     emits = logB[:, y].T
 
-    if use_pallas == "auto":
-        # honest r4 hardware verdict (results/round4_measure.log): the
-        # beam kernel is bit-exact and 36% faster than round 3 (7.9 vs
-        # 10.7 ms at K=3965/B=64) but the XLA beam path measures 3.3 ms.
-        # The binding constraint is the B-deep serial chain of dependent
-        # masked-max extractions (measured attribution in
-        # scripts/beam_profile2.py; traffic proven irrelevant after the
-        # 1x-slab DMA fix), where XLA's fused native top_k wins.  XLA is
-        # the default; use_pallas=True stays available (hw-proven).
-        use_pallas = False
-    from .flash import _pallas_interpret
-
     mids = flash_midpoints(0, T - 1, N) if N > 1 else []
-    last, anchors = _phase1_beam(logA, logPi, emits, mids, B,
-                                 use_pallas=bool(use_pallas),
-                                 interpret=_pallas_interpret())
+    last, anchors = _phase1_beam(logA, logPi, emits, mids, B)
 
     starts_l, lens_l, Lmax = segment_layout(mids, T)
     starts = jnp.asarray(starts_l, jnp.int32)
@@ -197,14 +166,13 @@ def _memory(K: int, T: int, beam_width: int = 64, num_segments: int = 8, **_) ->
 
 
 @register("flash_bs")
-def _build(beam_width: int = 64, num_segments: int = 8,
-           use_pallas: bool | str = "auto", **static) -> Decoder:
+def _build(beam_width: int = 64, num_segments: int = 8, **static) -> Decoder:
     def fn(logA, logB, logPi, y):
         return flash_bs_decode(logA, logB, logPi, y, beam_width=beam_width,
-                               num_segments=num_segments, use_pallas=use_pallas)
+                               num_segments=num_segments)
 
     return Decoder(
         "flash_bs", fn, {"beam_width": beam_width, "num_segments": num_segments,
-                         "use_pallas": use_pallas, **static},
+                         **static},
         _memory,
     )

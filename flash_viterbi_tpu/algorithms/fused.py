@@ -1,129 +1,57 @@
-"""Fused full-state decoder — the framework's flagship TPU speed path.
+"""Fused full-state decoder: one forward pass with a full pointer table.
 
-One Pallas kernel runs the whole forward recursion at HBM speed-of-light
-(~84 us/step at K=4096; ~92% of theoretical bandwidth at K=16384 — see
-results/SCALE.md), materializing the full pointer table; backtrack is a
-reverse scan of O(1) gathers.  Decoded paths are bit-identical to
-``vanilla`` (same framework numerics contract, verified in tests).
+The forward recursion runs over all T steps, materializing the (T, K)
+pointer table; backtrack is a reverse scan of O(1) gathers.  Decoded
+paths are bit-identical to ``vanilla`` (same framework numerics contract,
+verified in tests).  :func:`fused_decode_batch` runs a whole batch as the
+lanes of one step, so with the Triton step the sequences share one
+``logA`` stream per trellis step.
 
-Capability mapping vs the reference: this is the TPU-native replacement for
-the *performance* role of FLASH (``src/FLASH_Viterbi_multithread.c``) at
-moderate T — on TPU the full pointer table at K=4096, T=256 is 4 MB of HBM,
-so the reference's two-phase anchor scheme buys nothing; the phases
-collapse into one fused pass.  The O(N*K)-memory FLASH semantics (for long
-T) live in ``algorithms.flash``; the sharded multi-chip path in
-``parallel.sharded``.
+Capability mapping vs the reference: this covers the *performance* role of
+FLASH (``src/FLASH_Viterbi_multithread.c``) at moderate T — the full
+pointer table at K=4096, T=256 is 4 MB of device memory, so the
+reference's two-phase anchor scheme buys nothing; the phases collapse into
+one pass.  The O(N*K)-memory FLASH semantics (for long T) live in
+``algorithms.flash``; the sharded multi-card path in ``parallel.sharded``.
 """
 
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
 
 from ..ops import maxplus as mp
-from ..ops.pallas.backtrack import (argmax_walk_pallas, argmax_walk_supported,
-                                    backtrack_pallas, backtrack_pallas_batched)
-from ..ops.pallas.maxplus import (RESIDENT_MAX_K, forward_scan_pallas,
-                                  kernel_supported, maxplus_scan,
-                                  maxplus_scan_deltas)
 from .base import Decoder, register
 
 
 def fused_decode(logA, logB, logPi, y, use_pallas: bool | str = "auto",
                  precision: str = "fp32"):
-    """``precision="bf16"`` halves the logA HBM stream by quantizing the
-    transition matrix to bfloat16 — an *approximate* mode: measured on the
-    headline config it is ~1.7x faster (12.8 vs 22 ms) and returns a path
-    whose log-likelihood is within ~1e-4 relative of optimal, but the
-    state sequence itself can differ substantially (Viterbi reroutes on
-    tiny score perturbations).  The default fp32 mode is the exact-parity
-    contract."""
-    emits = logB[:, y].T  # (T, K)
-    delta0 = logPi + emits[0]
-    if precision == "bf16":
-        logA = logA.astype(jnp.bfloat16)
-    if use_pallas == "auto":
-        use_pallas = jax.default_backend() == "tpu"
-    if use_pallas and not kernel_supported(logA.shape[0]):
-        use_pallas = False  # K not tileable by the kernel; fall back cleanly
-    if use_pallas:
-        interpret = jax.default_backend() != "tpu"
-        K = logA.shape[0]
-        if (precision == "fp32" and K <= RESIDENT_MAX_K
-                and argmax_walk_supported(1, K)):
-            # resident shapes are VPU-bound even single-lane: recompute
-            # pipeline (see fused_decode_batch) with the VMEM-resident
-            # walk (logAT fits on chip — no per-row DMA chain)
-            dfin, deltas = maxplus_scan_deltas(
-                logA, emits[1:][:, None, :], delta0[None, :],
-                interpret=interpret)
-            last = mp.argmax_final(dfin[0])
-            return argmax_walk_pallas(deltas, jnp.transpose(logA),
-                                      last[None], interpret=interpret)[0]
-        dfin, ptrs = forward_scan_pallas(delta0, logA, emits[1:],
-                                         interpret=interpret)
-        last = mp.argmax_final(dfin)
-        # chunk-streamed pointer walk: the XLA backtrack's T dependent
-        # row-reads dominate long-T decodes (results/SCALE.md 57 G row)
-        return backtrack_pallas(ptrs, last, interpret=interpret)
-    dfin, ptrs = mp.forward_scan(delta0, logA, emits[1:])
-    last = mp.argmax_final(dfin)
-    return mp.backtrack(ptrs, last)
+    """One sequence: the one-lane case of :func:`fused_decode_batch`.
+
+    ``precision="bf16"`` halves the logA stream by quantizing the
+    transition matrix to bfloat16 — an *approximate* mode: the path's
+    log-likelihood stays close to optimal, but the state sequence itself
+    can differ substantially (Viterbi reroutes on tiny score
+    perturbations).  The default fp32 mode is the exact-parity contract."""
+    return fused_decode_batch(logA, logB, logPi, y[None], use_pallas=use_pallas,
+                              precision=precision)[0]
 
 
 def fused_decode_batch(logA, logB, logPi, ys, use_pallas: bool | str = "auto",
-                       precision: str = "fp32",
-                       pointers: str = "auto"):
-    """Decode a whole (BATCH, T) batch through the N-lane kernel.
+                       precision: str = "fp32"):
+    """Decode a whole (BATCH, T) batch, one lane per sequence.
 
-    The kernel streams each logA tile ONCE per trellis step for the entire
-    batch (a vmap of the single-sequence decoder re-reads logA per
-    sequence), so until the VPU saturates (~batch 4-8 at K=4096) batching
-    is nearly free — per-chip throughput multiplies by the batch size.
     Returns (BATCH, T) paths identical to per-sequence ``fused_decode``.
-
-    ``pointers``: "store" records argmax witnesses in the forward scan
-    (the classic pipeline); "recompute" stores the fp32 carry history
-    instead and re-derives each WALKED step's argmax from one logA column
-    (SURVEY §7's recompute-on-backtrack trade) — the batched scan is
-    VPU-bound and the in-scan compare/select chain is ~60% of its per-cell
-    work, so dropping it raises aggregate throughput; bit-identical paths
-    (same fp32 sums drive both argmaxes).  "auto" picks recompute when the
-    batch is deep enough to be VPU-bound and the walk kernel supports the
-    shape.
+    ``use_pallas`` chooses the Triton step (``ops.maxplus.use_kernel_for``).
     """
-    Bs, T = ys.shape
     if precision == "bf16":
         logA = logA.astype(jnp.bfloat16)
     emits = jnp.transpose(logB[:, ys], (2, 1, 0))  # (K,Bs,T) -> (T,Bs,K)
     delta0 = logPi[None, :] + emits[0]
-    if use_pallas == "auto":
-        use_pallas = jax.default_backend() == "tpu"
-    if use_pallas and not kernel_supported(logA.shape[0]):
-        use_pallas = False
-    if use_pallas:
-        interpret = jax.default_backend() != "tpu"
-        K = logA.shape[0]
-        if pointers == "auto":
-            pointers = ("recompute"
-                        if Bs >= 4 and precision == "fp32"
-                        and argmax_walk_supported(Bs, K) else "store")
-        if pointers == "recompute":
-            dfin, deltas = maxplus_scan_deltas(logA, emits[1:], delta0,
-                                               interpret=interpret)
-            last = jnp.argmax(dfin, axis=1).astype(jnp.int32)
-            return argmax_walk_pallas(deltas, jnp.transpose(logA), last,
-                                      interpret=interpret)
-        dfin, ptrs = maxplus_scan(logA, emits[1:], delta0, interpret=interpret)
-        last = jnp.argmax(dfin, axis=1).astype(jnp.int32)  # (Bs,)
-        # one kernel walks all Bs lanes (vmap-of-pallas_call is Mosaic-illegal)
-        return backtrack_pallas_batched(ptrs, last, interpret=interpret)
 
     def step(d, e):
-        scores = d[:, :, None] + logA[None, :, :]
-        return jnp.max(scores, axis=1) + e, jnp.argmax(scores, axis=1).astype(jnp.int32)
+        val, arg = mp.maxplus_lanes(d, logA, use_pallas)
+        return val + e, arg
 
     dfin, ptrs = jax.lax.scan(step, delta0, emits[1:])
     last = jnp.argmax(dfin, axis=1).astype(jnp.int32)  # (Bs,)
@@ -131,7 +59,7 @@ def fused_decode_batch(logA, logB, logPi, ys, use_pallas: bool | str = "auto",
 
 
 def _memory(K: int, T: int, **_) -> int:
-    # full pointer table + delta carry/accumulators (ops/pallas/maxplus.py)
+    # full pointer table + delta carry and step outputs
     return T * K * 4 + 4 * K * 4
 
 

@@ -1,22 +1,22 @@
-"""SIEVE-Mp, TPU-native: level-batched masked divide-and-conquer.
+"""SIEVE-Mp: level-batched masked divide-and-conquer.
 
 The reference (``Base_line/C implementations/SIEVE-Mp.c:286-509``) recurses
 over the time midpoint, BFS-prunes the state set of each half, and runs a
 pruned K'xK' forward pass per node — data-dependent shapes everywhere.
 
-TPU redesign (SURVEY.md §3.4/§7): the recursion *tree over time* is static
+Redesign (SURVEY.md §3.4/§7): the recursion *tree over time* is static
 (floor(T/2) splits), so
 
 * nodes are processed **level by level**; all segments of one level with
-  equal length decode in ONE batched fused-kernel call (2 calls/level max,
+  equal length decode as the lanes of ONE scan (2 scans/level max,
   lengths within a level differ by at most one);
 * state-set pruning becomes a **mask**: banned states get -inf emissions,
   which kills them as destinations and (via -inf scores) as sources — the
   masked full-K argmax equals the reference's subset argmax, including
   lowest-index tie-breaking (subset order is ascending);
 * the BFS itself is h hops of a boolean frontier advance, computed as an
-  MXU matmul against the 0/1 adjacency matrix, batched over segments;
-* median pairs come from a cheap post-scan over the kernel's pointer rows
+  matmul against the 0/1 adjacency matrix, batched over segments;
+* median pairs come from a cheap post-scan over the scan's pointer rows
   (record at j == mid, then gather-propagate — reference :338-346);
 * the in-order pair flattening (``change_mp_path`` :466-489) has a fully
   static structure (the -1-sentinel condition depends only on tree shape),
@@ -41,9 +41,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from ..ops.pallas.maxplus import kernel_supported, maxplus_scan
+from ..ops import maxplus as mp
 from .base import Decoder, register
-from .flash import _pallas_interpret
 
 NEG = np.float32(-np.inf)  # numpy scalar: no backend init at import
 
@@ -146,12 +145,15 @@ def _bfs_masks(adjF, frontier0, parent_mask, hops: int):
     """Nodes within <= hops of the frontier, inside parent_mask.
 
     adjF: (K, K) f32 0/1 matrix, adjF[i, j] = edge i->j in traversal
-    direction.  frontier0: (S, K) one-hot f32.  MXU matmul per hop.
+    direction.  frontier0: (S, K) one-hot f32.  One matmul per hop.
     """
     visited = jnp.zeros_like(frontier0)
 
     def step(carry, _):
         visited, frontier = carry
+        # a sum of 0/1 products compared with > 0: exact in any precision
+        # a float32 matmul may use (TF32 on a GPU keeps every nonzero sum
+        # nonzero), so no precision argument is needed
         reach = (frontier @ adjF) > 0
         new = jnp.logical_and(reach, visited == 0).astype(frontier0.dtype)
         new = new * parent_mask
@@ -161,8 +163,7 @@ def _bfs_masks(adjF, frontier0, parent_mask, hops: int):
     return visited  # (S, K) 0/1
 
 
-def sieve_mp_decode(logA, logB, logPi, y, A_posF,
-                    prune: bool = True, use_pallas: bool | str = "auto"):
+def sieve_mp_decode(logA, logB, logPi, y, A_posF, prune: bool = True):
     """Full SIEVE-Mp decode; bit-compatible with
     ``oracle.sieve.sieve_mp(numerics='f32')`` when ``prune=True``.
 
@@ -177,14 +178,6 @@ def sieve_mp_decode(logA, logB, logPi, y, A_posF,
         # SIEVE-Mp.c:470-471 — out of bounds at T=1); decode directly.
         d0 = logPi + logB[:, y[0]]
         return jnp.argmax(d0).astype(jnp.int32)[None]
-    if use_pallas == "auto":
-        # same convention as every sibling decoder: the kernel only on the
-        # TPU backend — elsewhere the bit-identical lax.scan path is far
-        # faster than the Pallas interpreter
-        use_pallas = jax.default_backend() == "tpu"
-    if use_pallas and not kernel_supported(K):
-        use_pallas = False  # K not tileable by the kernel; fall back cleanly
-    interp = _pallas_interpret()
     emits = logB[:, y].T  # (T, K)
     nodes = build_tree(T)
 
@@ -226,15 +219,11 @@ def sieve_mp_decode(logA, logB, logPi, y, A_posF,
             d0 = jnp.where((init >= 0)[:, None], forced0, root_pi) + seg_emits[:, 0]
 
             emitsN = jnp.transpose(seg_emits[:, 1:, :], (1, 0, 2))  # (L-1, S, K)
-            if use_pallas:
-                dfin, ptrs = maxplus_scan(logA, emitsN, d0, interpret=interp)
-            else:
-                def stepf(d, e):
-                    scores = d[:, :, None] + logA[None, :, :]
-                    dn = jnp.max(scores, axis=1) + e
-                    pn = jnp.argmax(scores, axis=1).astype(jnp.int32)
-                    return dn, pn
-                dfin, ptrs = jax.lax.scan(stepf, d0, emitsN)
+            def stepf(d, e):
+                val, arg = mp.maxplus_lanes(d, logA)
+                return val + e, arg
+
+            dfin, ptrs = jax.lax.scan(stepf, d0, emitsN)
 
             mid = length // 2
             px, py = _planes_from_ptrs(ptrs, mid)
@@ -287,12 +276,11 @@ def sieve_mp_decode(logA, logB, logPi, y, A_posF,
 
 
 # ---------------------------------------------------------------------------
-# SIEVE-BS-Mp, TPU-native: beam-pruned fixed-median D&C
+# SIEVE-BS-Mp: beam-pruned fixed-median D&C
 # ---------------------------------------------------------------------------
 
-def sieve_bs_mp_decode(logA, logB_raw, logPi, y, A_posF, beam_width: int,
-                       use_pallas: bool | str = "auto"):
-    """TPU-native SIEVE-BS-Mp (``sieve_beam_search.py:351-501`` /
+def sieve_bs_mp_decode(logA, logB_raw, logPi, y, A_posF, beam_width: int):
+    """SIEVE-BS-Mp (``sieve_beam_search.py:351-501`` /
     ``SIEVE-BS-Mp.c``): fixed-median D&C with static top-B beam pruning,
     on the same static level-batched tree as :func:`sieve_mp_decode`.
 
@@ -315,9 +303,8 @@ def sieve_bs_mp_decode(logA, logB_raw, logPi, y, A_posF, beam_width: int,
     the other path of the tie class.
 
     Cost shape: only each segment's FIRST step (whose token set can exceed
-    the beam, e.g. the root's full K) runs a dense max-plus (the fused
-    Pallas kernel on TPU — no (S, K, K) score tensor is ever
-    materialized); every later step gathers the B beam rows of ``logA``
+    the beam, e.g. the root's full K) runs a dense max-plus (the shared
+    lane step, ``ops.maxplus.maxplus_lanes``); every later step gathers the B beam rows of ``logA``
     and runs in O(S*B*K) — which is what makes headline-K (3965+) decoding
     possible.
 
@@ -331,9 +318,6 @@ def sieve_bs_mp_decode(logA, logB_raw, logPi, y, A_posF, beam_width: int,
     if T == 1:
         d0 = logPi + logB_raw[:, y[0]]
         return jnp.argmax(d0).astype(jnp.int32)[None]
-    if use_pallas == "auto":
-        use_pallas = jax.default_backend() == "tpu" and kernel_supported(K)
-    interp = _pallas_interpret()
 
     # miss-as-zero emission table (reference acoustic dict fallthrough)
     emitQ = jnp.where(logB_raw > NEG, logB_raw, 0.0)  # (K, M)
@@ -391,17 +375,7 @@ def sieve_bs_mp_decode(logA, logB_raw, logPi, y, A_posF, beam_width: int,
 
         # --- step j=1: dense (the token set may exceed B) ---------------
         T1m = jnp.where(cur > 0, T1, NEG)
-        if use_pallas:
-            zero_emit = jnp.zeros((1, S, K), jnp.float32)
-            dfin, ptrs = maxplus_scan(logA, zero_emit, T1m, interpret=interp)
-            val1, win1 = dfin, ptrs[0]
-        else:
-            def one(t1m):
-                scores = t1m[:, None] + logA  # (K, K), one lane at a time
-                return (jnp.max(scores, axis=0),
-                        jnp.argmax(scores, axis=0).astype(jnp.int32))
-
-            val1, win1 = jax.lax.map(one, T1m)
+        val1, win1 = mp.maxplus_lanes(T1m, logA)
         touched = jnp.logical_and((cur @ A_posF) > 0, mask > 0)
         sym1 = y[starts + 1]
         T1 = jnp.where(touched, val1 + emitQ[:, sym1].T, NEG)
@@ -510,13 +484,11 @@ def sieve_bs_mp_decode(logA, logB_raw, logPi, y, A_posF, beam_width: int,
 
 
 @register("sieve_bs_mp")
-def _build_bs_mp(beam_width: int = 64, use_pallas: bool | str = "auto",
-                 **static) -> Decoder:
+def _build_bs_mp(beam_width: int = 64, **static) -> Decoder:
     def fn(logA, logB, logPi, y):
         A_posF = (logA > NEG).astype(jnp.float32)
         return sieve_bs_mp_decode(logA, logB, logPi, y, A_posF,
-                                  beam_width=beam_width,
-                                  use_pallas=use_pallas)
+                                  beam_width=beam_width)
 
     return Decoder("sieve_bs_mp", fn, {"beam_width": beam_width, **static},
                    lambda K, T, **_: T * beam_width * 8 + 4 * K * 4)
@@ -529,11 +501,9 @@ def _memory(K: int, T: int, **_) -> int:
 
 
 @register("sieve_mp")
-def _build(prune: bool = True, use_pallas: bool | str = "auto", **static) -> Decoder:
+def _build(prune: bool = True, **static) -> Decoder:
     def fn(logA, logB, logPi, y):
         A_posF = (logA > NEG).astype(jnp.float32)
-        return sieve_mp_decode(logA, logB, logPi, y, A_posF, prune=prune,
-                               use_pallas=use_pallas)
+        return sieve_mp_decode(logA, logB, logPi, y, A_posF, prune=prune)
 
-    return Decoder("sieve_mp", fn, {"prune": prune, "use_pallas": use_pallas,
-                                    **static}, _memory)
+    return Decoder("sieve_mp", fn, {"prune": prune, **static}, _memory)

@@ -14,7 +14,7 @@ Examples::
 
     python -m flash_viterbi_tpu generate -K 512 -M 50 -T 256 -p 0.112 -o data/
     python -m flash_viterbi_tpu decode -a fused -K 512 -M 50 -T 256 -p 0.112
-    python -m flash_viterbi_tpu bench -a fused,flash -K 1024,3965 -T 256 --csv-dir results/
+    python -m flash_viterbi_tpu bench -a fused,flash -K 1024,3965 -T 256 --csv-dir out/
 """
 
 from __future__ import annotations
@@ -138,22 +138,25 @@ def cmd_compare(args) -> int:
 
 
 def cmd_scaling(args) -> int:
-    """Scaling report: analytic ICI model at the target config + a
-    virtual-mesh correctness sweep (parallel.scaling)."""
+    """Scaling report: the analytic model of the sharded decode at the
+    target config (parallel.scaling), at a per-card update rate that is
+    given (``--rate``) or measured on this device (``--measure``)."""
     import json
 
-    from .parallel.scaling import analyze, measure_virtual
+    from .parallel.scaling import analyze, measure_update_rate
 
-    shapes = []
-    for spec in args.mesh.split(";"):
-        d, s_, t = (int(x) for x in spec.split(","))
-        shapes.append((d, s_, t))
-    for shape in shapes:
-        r = analyze(shape, K=args.K, T=args.T, batch=args.batch)
-        print(json.dumps(r.as_dict()))
     if args.measure:
-        for row in measure_virtual(shapes):
-            print(row)
+        rate = measure_update_rate()
+    elif args.rate:
+        rate = args.rate
+    else:
+        print("scaling: give --rate or --measure", file=sys.stderr)
+        return 2
+    for spec in args.mesh.split(";"):
+        shape = tuple(int(x) for x in spec.split(","))
+        r = analyze(shape, K=args.K, T=args.T, batch=args.batch,
+                    card_updates_per_s=rate, link_bytes_per_s=args.link)
+        print(json.dumps(r.as_dict()))
     return 0
 
 
@@ -176,6 +179,9 @@ def cmd_bench(args) -> int:
 
 
 def main(argv=None) -> int:
+    from .utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     ap = argparse.ArgumentParser(prog="flash_viterbi_tpu", description=__doc__)
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -207,14 +213,18 @@ def main(argv=None) -> int:
                         "cross-product, like the reference Baseline.py)")
     c.set_defaults(fn=cmd_compare)
 
-    sc = sub.add_parser("scaling", help="ICI scaling model + virtual-mesh sweep")
+    sc = sub.add_parser("scaling", help="scaling model of the sharded decode")
     sc.add_argument("-K", type=int, default=16384)
     sc.add_argument("-T", type=int, default=65536)
     sc.add_argument("--batch", type=int, default=256)
     sc.add_argument("--mesh", default="1,1,2;1,2,2;2,2,2;1,1,8",
                     help="semicolon-separated data,seq,state shapes")
+    sc.add_argument("--rate", type=float,
+                    help="trellis updates per second of one card")
+    sc.add_argument("--link", type=float, required=True,
+                    help="card-to-card bandwidth, bytes per second each way")
     sc.add_argument("--measure", action="store_true",
-                    help="also run the virtual-device sweep")
+                    help="measure the update rate on this device")
     sc.set_defaults(fn=cmd_scaling)
 
     b = sub.add_parser("bench", help="sweep configs to per-algorithm CSVs")

@@ -4,11 +4,11 @@ The reference (``/root/reference/src/FLASH_Viterbi_multithread.c:25-34``) keeps
 raw probabilities ``A (K,K)``, ``B (K,M)``, ``Pi (K,)`` in a C struct and calls
 ``log()`` lazily per trellis access (``:170``) — 2*K^2 libm calls per step.
 
-TPU-first redesign: precompute ``log A``, ``log B``, ``log Pi`` exactly once
+Redesign: precompute ``log A``, ``log B``, ``log Pi`` exactly once
 (float64 ``log`` truncated to float32 — the same value the C code's
 per-access ``log()`` produces after its assignment-truncation), keep them
-HBM-resident, and pad the state dimension to the hardware lane multiple so
-every kernel sees static, aligned shapes.
+resident in device memory, and pad the state dimension to a multiple of
+128 so every step sees static, aligned shapes.
 
 Padding contract: padded states are "dead" — their ``log Pi``/incoming
 ``log A`` columns and outgoing rows are ``-inf`` so they can never win an

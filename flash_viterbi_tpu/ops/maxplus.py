@@ -12,19 +12,53 @@ over the source index k, so the argmax is unchanged in exact arithmetic vs
 the reference C's in-loop 3-term sum (``src/FLASH_Viterbi_multithread.c:170``,
 which computes in double and truncates once — both orders are equally close
 to it); hoisting it out of the K² inner loop removes a full K×K add per
-trellis step and is the layout the Pallas kernel wants.
+trellis step and is the layout the Triton step wants.
 ``jnp.argmax`` returns the first occurrence, matching the reference's
 strict-``>`` scans (SURVEY.md §3.6).
 
-These are the pure-XLA definitions; ``ops.pallas`` provides fused TPU
-kernels with identical semantics, selected by the dispatch in
-``algorithms``.
+These are the pure-XLA definitions.  :func:`maxplus_lanes` is the one
+N-lane step every decoder calls; on the GPU it may run the Triton kernel
+of ``ops.maxplus_triton``, which has identical semantics.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+
+
+def maxplus_lanes_xla(delta: jax.Array, logA: jax.Array):
+    """(N, K) lanes x (K, Kd) block -> ((N, Kd) max, (N, Kd) int32 argmax),
+    without the emission term; the plain reference of the Triton step."""
+    scores = delta[:, :, None] + logA[None, :, :]
+    return (jnp.max(scores, axis=1),
+            jnp.argmax(scores, axis=1).astype(jnp.int32))
+
+
+def use_kernel_for(use_kernel: bool | str = "auto",
+                   platform: str | None = None) -> bool:
+    """Whether :func:`maxplus_lanes` runs the Triton step.
+
+    "auto": on a GPU, where it measured faster than XLA at every lane
+    count tried (PERF.md); XLA elsewhere.  True asks for the kernel and is
+    an error off the GPU (it has no compiled form there); False is XLA."""
+    platform = platform or jax.default_backend()
+    if use_kernel == "auto":
+        return platform == "gpu"
+    if use_kernel and platform != "gpu":
+        raise ValueError(f"the Triton step needs a GPU, not {platform!r}")
+    return bool(use_kernel)
+
+
+def maxplus_lanes(delta: jax.Array, logA: jax.Array,
+                  use_kernel: bool | str = "auto"):
+    """N-lane step without the emission term: the Triton kernel or XLA, as
+    :func:`use_kernel_for` decides (both return bit-identical results)."""
+    if use_kernel_for(use_kernel):
+        from .maxplus_triton import maxplus_lanes_triton
+
+        return maxplus_lanes_triton(delta, logA)
+    return maxplus_lanes_xla(delta, logA)
 
 
 def maxplus_step(delta: jax.Array, logA: jax.Array, emit: jax.Array):
@@ -48,17 +82,6 @@ def maxplus_step_noptr(delta: jax.Array, logA: jax.Array, emit: jax.Array):
     return jnp.max(scores, axis=0) + emit
 
 
-def init_delta(logPi: jax.Array, logB: jax.Array, y0: jax.Array) -> jax.Array:
-    """delta_0 = logPi + logB[:, y_0]  (reference :142)."""
-    return logPi + logB[:, y0]
-
-
-def forced_delta(logA: jax.Array, logB: jax.Array, state, y_t) -> jax.Array:
-    """delta at segment entry forced from a known previous state
-    (reference :147-151): logA[state, :] + logB[:, y_t]."""
-    return logA[state, :] + logB[:, y_t]
-
-
 def forward_scan(delta0: jax.Array, logA: jax.Array, emits: jax.Array):
     """Forward pass over a whole (sub)sequence, materializing pointers.
 
@@ -75,17 +98,6 @@ def forward_scan(delta0: jax.Array, logA: jax.Array, emits: jax.Array):
         return d, p
 
     return jax.lax.scan(step, delta0, emits)
-
-
-def forward_scan_noptr(delta0: jax.Array, logA: jax.Array, emits: jax.Array):
-    """Score-only forward pass; optionally returns per-step deltas."""
-
-    def step(delta, emit):
-        d = maxplus_step_noptr(delta, logA, emit)
-        return d, None
-
-    delta, _ = jax.lax.scan(step, delta0, emits)
-    return delta
 
 
 def backtrack(ptrs: jax.Array, last_state: jax.Array) -> jax.Array:
@@ -110,11 +122,3 @@ def backtrack(ptrs: jax.Array, last_state: jax.Array) -> jax.Array:
 def argmax_final(delta: jax.Array) -> jax.Array:
     """Lowest-index argmax of the final scores (reference :186-196)."""
     return jnp.argmax(delta).astype(jnp.int32)
-
-
-def path_score(logA, logB, logPi, y, path) -> jax.Array:
-    """Log-likelihood of a state path (for cross-implementation invariants)."""
-    e = logPi[path[0]] + logB[path[0], y[0]]
-    trans = logA[path[:-1], path[1:]]
-    emits = logB[path[1:], y[1:]]
-    return e + jnp.sum(trans + emits)

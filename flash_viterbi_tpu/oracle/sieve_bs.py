@@ -56,7 +56,7 @@ class ReferenceUndefined(ValueError):
     child's first-frame init (``sieve_beam_search.py:88``); the C
     binaries index out of bounds at the same point.  There are no
     reference semantics to mirror, so the oracle refuses loudly instead
-    of inventing output (or, for SIEVE-BS, recursing forever).  The TPU
+    of inventing output (or, for SIEVE-BS, recursing forever).  The device
     decoders (``algorithms.sieve_bs``) are total: they emit the
     SIEVE-Mp-style ``(-1, -1)`` sentinel pair and decode the rest — a
     documented extension beyond the reference's domain.

@@ -99,10 +99,11 @@ def dp_divergence_tolerance_f64(T: int, ref_score: float) -> float:
     The fp32 recursion rounds once per step at magnitude ~|s|*t/T; argmax
     selects on the ROUNDED scores, so the chosen paths' true (f64) scores
     drift apart roughly like eps*|s|*sqrt(T) with a selection bias factor.
-    Hardware calibration (2026-08-19, results/ROUND3.md): at T=65536 the
-    observed gaps are ~4x eps*|s|*sqrt(T) — checkpoint vs flash N=8 at
-    K=1024: 31.5 nats; flash N=4 vs N=2 at K=16384: 39.5 nats — and are
-    MONOTONE in restart count (more restarts = shorter fp32 spans =
+    Calibration: the observed gaps come from runs on another machine (the
+    one this program was first built for; not yet re-measured on the
+    H100).  At T=65536 they were ~4x eps*|s|*sqrt(T) — checkpoint vs
+    flash N=8 at K=1024: 31.5 nats; flash N=4 vs N=2 at K=16384: 39.5
+    nats — and MONOTONE in restart count (more restarts = shorter fp32 spans =
     better scores), confirming rounding accumulation, not bugs.  The
     bound here is 4x the observed factor.  Honest caveat: at this scale
     one genuinely wrong transition (~10-15 nats) is INSIDE the tolerance

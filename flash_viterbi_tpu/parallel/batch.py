@@ -1,9 +1,10 @@
 """Batched decoding: many sequences at once (dp axis).
 
 The reference decodes one sequence per process (SURVEY.md §2.6 row 3 —
-batch parallelism absent).  On TPU this is the cheapest axis: ``vmap`` over
-sequences on one chip, or the ``(data, seq, state)`` mesh path
-(``parallel.sharded``) across chips.
+batch parallelism absent).  On a device this is the cheapest axis: the
+sequences become the lanes of one step (``fused``) or a ``vmap`` on one
+card, or the ``(data, seq, state)`` mesh path (``parallel.sharded``)
+across cards.
 """
 
 from __future__ import annotations
@@ -34,8 +35,7 @@ def decode_batch(
     Args:
       ys: (BATCH, T) int observations.
       mesh: optional ``parallel.sharded.make_mesh`` mesh — routes to the
-        multi-chip FLASH path (dp + sp + tp); otherwise ``vmap`` on the
-        default device.
+        multi-card FLASH path (dp + sp + tp); otherwise one device.
 
     Returns a DecodeResult whose ``path`` is (BATCH, T).
     """
@@ -62,7 +62,8 @@ def decode_batch(
         mem_algorithm = "flash"
         dec = build("flash", num_segments=num_segments or 8, **static)
     elif algorithm == "fused":
-        # batched kernel: logA streamed once per step for the whole batch
+        # one lane per sequence: the Triton step streams logA once per
+        # step for the whole batch
         from ..algorithms.fused import fused_decode_batch
 
         dec = build("fused", **static)
@@ -77,7 +78,7 @@ def decode_batch(
         if num_segments is not None:
             static.setdefault("num_segments", num_segments)
         dec = build(algorithm, **static)
-        if dec.jittable_for(logA.shape[0], yd.shape[-1]):
+        if dec.jittable:
             fn = jax.jit(jax.vmap(dec, in_axes=(None, None, None, 0)))
 
             def run():

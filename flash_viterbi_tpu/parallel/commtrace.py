@@ -1,9 +1,9 @@
 """Jaxpr-level collective tracer: validate the scaling model against the
 program that actually runs.
 
-VERDICT r3 weak #7: the analytic model's pipeline-bubble and gather-bytes
-terms (``parallel.scaling.analyze``) had never been checked against even
-a virtual-mesh trace.  This module walks the closed jaxpr of the sharded
+The analytic model's pipeline-bubble and gather-bytes terms
+(``parallel.scaling.analyze``) are checked against a virtual-mesh trace
+here.  This module walks the closed jaxpr of the sharded
 decode (recursing through scan/cond/pjit/shard_map, multiplying by static
 scan trip counts) and accumulates, per collective kind, the total bytes a
 single device RECEIVES:

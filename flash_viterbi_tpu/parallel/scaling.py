@@ -1,8 +1,6 @@
 """Scaling model + measurement for the (data, seq, state) mesh.
 
-The BASELINE target is >= 80% scaling efficiency to >= 2 hosts at
-K=16384, T=65536, 256 sequences.  Only one physical chip is attached in
-this environment, so this module provides
+This module provides
 
 (a) an *honest analytic model* of the pipelined sharded decode
     (``parallel.sharded``): per-device trellis-update counts including the
@@ -16,11 +14,10 @@ this environment, so this module provides
     code path; plus a parity sweep (``measure_virtual``) asserting
     bit-identical paths across mesh shapes.
 
-Calibration: ``CHIP_UPDATES_PER_S`` is the *measured* fused-kernel rate
-from the round-1 hardware bench (BENCH_r01: 185-224 G upd/s on TPU v5e at
-the K=3965/T=256 headline config; 189 G sustained for the fused decode) —
-not a datasheet constant.  ``ICI_BYTES_PER_S`` is the v5e per-link
-bandwidth class.
+Rates: the model takes the per-card trellis-update rate and the
+card-to-card link bandwidth as arguments; no device's figures are built
+in.  :func:`measure_update_rate` measures the rate of the fused decode on
+the device it runs on.
 
 Model summary (see ``analyze`` for the formulas):
 
@@ -35,12 +32,12 @@ Model summary (see ``analyze`` for the formulas):
 * seq axis: one (mb, K) fp32 ppermute per pipeline tick, the (n_seq, Bd,
   K) boundary-plane gather, and the final (Bd, T) int32 psum.
 
-Validation (round 4): ``parallel.commtrace`` walks the sharded decode's
-jaxpr on virtual meshes and counts every collective it actually issues
-(scan trips multiplied through).  The ppermute term (whose tick count IS
-the pipeline bubble) and the path-psum term match the trace EXACTLY, and
-the total per-device received bytes match within 15% across (2,2,2) /
-(1,4,2) / (2,1,4) — pinned in tests/test_commtrace.py.
+Validation: ``parallel.commtrace`` walks the sharded decode's jaxpr on
+virtual meshes and counts every collective it actually issues (scan trips
+multiplied through).  The ppermute term (whose tick count IS the pipeline
+bubble) and the path-psum term match the trace EXACTLY, and the total
+per-device received bytes match within 15% across (2,2,2) / (1,4,2) /
+(2,1,4) — pinned in tests/test_commtrace.py.
 """
 
 from __future__ import annotations
@@ -49,13 +46,6 @@ import dataclasses
 import math
 
 import numpy as np
-
-# Measured on hardware (BENCH_r01.json / results/SCALE.md): sustained fused
-# Pallas kernel decode rate on one TPU v5e chip at the headline config.
-CHIP_UPDATES_PER_S = 1.89e11
-# v5e ICI per-direction link bandwidth class (public spec order of magnitude).
-ICI_BYTES_PER_S = 4.5e10
-
 
 @dataclasses.dataclass
 class ScalingReport:
@@ -70,7 +60,7 @@ class ScalingReport:
     # per-device accounting
     updates_per_device: float          # trellis updates (phase 1 + 2 + bubble)
     ideal_updates_per_device: float    # 2*B*T*K^2 / n_devices
-    ici_bytes_per_device: float
+    link_bytes_per_device: float
     ptr_bytes_per_device: int          # phase-2 pointer tables (peak)
     plane_bytes_per_device: int        # phase-1 plane store
     # derived
@@ -84,10 +74,12 @@ class ScalingReport:
 
 
 def analyze(mesh_shape: tuple[int, int, int], K: int, T: int, batch: int,
-            microbatch: int = 1, num_segments: int | None = None,
-            chip_updates_per_s: float = CHIP_UPDATES_PER_S,
-            ici_bytes_per_s: float = ICI_BYTES_PER_S) -> ScalingReport:
-    """Honest per-device model of one pipelined sharded decode."""
+            card_updates_per_s: float, link_bytes_per_s: float,
+            microbatch: int = 1,
+            num_segments: int | None = None) -> ScalingReport:
+    """Honest per-device model of one pipelined sharded decode, at a
+    per-card update rate and a card-to-card link bandwidth the caller
+    supplies (measured, or a data sheet's)."""
     d, s, t = mesh_shape
     B, mb = batch, microbatch
     if B % d:
@@ -117,7 +109,7 @@ def analyze(mesh_shape: tuple[int, int, int], K: int, T: int, batch: int,
     # ideal = the same two passes' step counts with zero bubble/imbalance
     ideal = B * K * K * ((T - 1) + max(T - num_segments, 1)) / (d * s * t)
 
-    # --- per-device ICI bytes ---
+    # --- per-device link bytes ---
     # state axis: delta fp32 + ptr int32 all_gather per step, both phases,
     # plus the boundary gathers the round-4 model missed (attributed via
     # the jaxpr trace, round 5): phase 1 adds 2 fp32 + 1 int32 (mb, K)
@@ -143,22 +135,22 @@ def analyze(mesh_shape: tuple[int, int, int], K: int, T: int, batch: int,
         # collective ships (n_mb, mb) int32 per device, not (.., K) fp32
         bytes_seq += (s - 1) * Bd * 4
         bytes_seq += math.ceil(math.log2(s)) * Bd * T * 4  # path psum
-    ici_bytes = bytes_state + bytes_seq
+    link_bytes = bytes_state + bytes_seq
 
     # --- per-device memory (the terms that gate config-5 shapes) ---
     Lseg = max(1, L // spd)
     ptr_bytes = mb * spd * max(Lseg - 1, 1) * K * 4      # phase-2 pointer table
     plane_bytes = ticks * mb * spd * K * 4               # stacked plane store
 
-    compute_s = updates / chip_updates_per_s
-    comm_s = ici_bytes / ici_bytes_per_s
+    compute_s = updates / card_updates_per_s
+    comm_s = link_bytes / link_bytes_per_s
     wall = compute_s + comm_s
-    ideal_wall = ideal / chip_updates_per_s
+    ideal_wall = ideal / card_updates_per_s
     return ScalingReport(
         n_data=d, n_seq=s, n_state=t, K=K, T=T, batch=B, microbatch=mb,
         num_segments=num_segments,
         updates_per_device=updates, ideal_updates_per_device=ideal,
-        ici_bytes_per_device=ici_bytes,
+        link_bytes_per_device=link_bytes,
         ptr_bytes_per_device=int(ptr_bytes),
         plane_bytes_per_device=int(plane_bytes),
         compute_s=compute_s, comm_s=comm_s, modeled_wall_s=wall,
@@ -168,28 +160,36 @@ def analyze(mesh_shape: tuple[int, int, int], K: int, T: int, batch: int,
 
 def work_report(mesh_shape: tuple[int, int, int], K: int, T: int, batch: int,
                 microbatch: int = 1, num_segments: int | None = None) -> dict:
-    """Per-device work counters of the pipelined plan (no wall clocks):
-    update counts, collective bytes, and memory — the load-bearing numbers
-    the efficiency claim rests on."""
-    rep = analyze(mesh_shape, K, T, batch, microbatch, num_segments)
+    """Per-device work counters of the pipelined plan (no wall clocks and
+    no rates): update counts, collective bytes, and memory."""
+    rep = analyze(mesh_shape, K, T, batch, 1.0, 1.0, microbatch,
+                  num_segments)
     return {
         "mesh": dict(zip(("data", "seq", "state"), mesh_shape)),
         "updates_per_device": rep.updates_per_device,
         "ideal_updates_per_device": rep.ideal_updates_per_device,
         "work_balance": rep.ideal_updates_per_device / rep.updates_per_device,
-        "ici_bytes_per_device": rep.ici_bytes_per_device,
+        "link_bytes_per_device": rep.link_bytes_per_device,
         "ptr_bytes_per_device": rep.ptr_bytes_per_device,
         "plane_bytes_per_device": rep.plane_bytes_per_device,
-        "modeled_efficiency": rep.modeled_efficiency,
     }
 
 
-def single_chip_wall_model(K: int, T: int,
-                           chip_updates_per_s: float = CHIP_UPDATES_PER_S
-                           ) -> float:
-    """Modeled single-chip fused decode wall (seconds) — the calibration
-    anchor: must reproduce the measured SCALE.md rows within ~20%."""
-    return (T - 1) * K * K / chip_updates_per_s
+def measure_update_rate(K: int = 1024, T: int = 256, seed: int = 1) -> float:
+    """Trellis updates per second of the fused decode on the default
+    device (wall time after a warm-up; ``utils.profiling.wall_time``)."""
+    import jax
+    import jax.numpy as jnp
+
+    from ..algorithms.fused import fused_decode
+    from ..models.generate import make_sparse_hmm
+    from ..utils.profiling import wall_time
+
+    hmm, y = make_sparse_hmm(K=K, M=50, T=T, prob=0.112, seed=seed)
+    lh = hmm.log().padded(128)
+    args = (jnp.asarray(lh.logA), jnp.asarray(lh.logB),
+            jnp.asarray(lh.logPi), jnp.asarray(y, jnp.int32))
+    return (T - 1) * K * K / wall_time(jax.jit(fused_decode), *args)
 
 
 def measure_virtual(mesh_shapes, K: int = 64, M: int = 8, T: int = 64,

@@ -1,12 +1,12 @@
-"""Multi-chip FLASH decode: ``shard_map`` over a ``(data, seq, state)`` mesh.
+"""Multi-card FLASH decode: ``shard_map`` over a ``(data, seq, state)`` mesh.
 
 The reference's only parallel runtime is a pthread work queue over time
-intervals (``src/FLASH_Viterbi_multithread.c:264-335``).  The TPU-native
-replacement (SURVEY.md §2.6/§2.7) has no scheduler at all — three static
-mesh axes carry all the parallelism, with XLA collectives over ICI:
+intervals (``src/FLASH_Viterbi_multithread.c:264-335``).  The replacement
+(SURVEY.md §2.6/§2.7) has no scheduler at all — three static mesh axes
+carry all the parallelism, with XLA collectives between the cards:
 
 * ``data``  — batch of independent sequences (the reference decodes one
-  sequence per process; batching is free on TPU).
+  sequence per process).
 * ``seq``   — FLASH's sequence parallelism.  Unlike the reference (whose
   phase 1, ``nvviterNdivide`` :126-202, is single-threaded), BOTH phases
   split over the ``seq`` axis here:
@@ -29,18 +29,15 @@ mesh axes carry all the parallelism, with XLA collectives over ICI:
     pointer decode, the same contract as ``algorithms.flash``).
 
 * ``state`` — tensor parallelism over the state dimension, needed once
-  ``log A`` outgrows one chip (K=16384 → 1 GiB fp32): each device holds a
+  ``log A`` outgrows one card (K=16384 → 1 GiB fp32): each device holds a
   column block ``logA[:, shard]`` and computes its slice of every max-plus
-  matvec with the rectangular Pallas step kernel
-  (``ops.pallas.maxplus_step_block``); the K-carries are rebuilt with a
-  tiled ``all_gather`` — O(K) bytes per trellis step on ICI, negligible
-  against the K²/s compute.
+  step with the same lane step as one card (``ops.maxplus.maxplus_lanes``,
+  on the rectangular block); the K-carries are rebuilt with a tiled
+  ``all_gather`` — O(K) bytes per trellis step, negligible against the
+  K²/s compute.
 
-On a (1,1,1) mesh the pipelined path degenerates to chunked fused-kernel
-scans — single-chip kernel throughput with no sharding overhead — which is
-what makes the K=16384 x T=65536 (config-5) shape runnable end to end on
-one chip (pointer tables stay O(T*K/N) per segment and emissions are
-gathered from the VMEM-resident (M, K) table, never materialized).
+The mesh follows the algorithm alone: every card reaches every other at
+the same rate, so no device topology enters the layout.
 
 Pipeline/expert parallelism have no analog here (no layered model, no
 experts — SURVEY.md §2.6 rows 4-5).
@@ -64,22 +61,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from ..algorithms.flash import flash_midpoints, prop_schedule, segment_layout
 from ..ops import maxplus as mp
-from ..ops.pallas.backtrack import (
-    argmax_walk_pallas,
-    argmax_walk_supported,
-    backtrack_pallas_batched,
-)
-from ..ops.pallas.maxplus import (
-    kernel_supported,
-    maxplus_scan,
-    maxplus_scan_deltas,
-    maxplus_step_block,
-    step_block_supported,
-)
-
 AXES = ("data", "seq", "state")
-
-_CHUNK = 512  # time-chunk for fused-kernel calls (bounds live emissions)
 
 
 def make_mesh(n_data: int = 1, n_seq: int = 1, n_state: int = 1, devices=None) -> Mesh:
@@ -135,73 +117,8 @@ def _pipeline_plan(T: int, n_seq: int, num_segments: int | None):
     return L, spd, L // spd
 
 
-def _phase2_segments_kernel(logA_l, logBT_l, logPi_f, sym_all, entries, exits,
-                            first, Lseg: int, interpret: bool):
-    """Forced-boundary pointer decode of NL segments on the kernel path.
-
-    Args:
-      sym_all: (NL, Lseg) int32 per-segment observation symbols.
-      entries/exits: (NL,) forced boundary states (entry ignored where
-        ``first`` — those segments start from the model prior).
-      first: (NL,) bool — segment 0 of each sequence.
-
-    Returns (NL, Lseg) int32 segment paths.  Chunked scans bound the live
-    emissions; the backtrack walks part-wise, chaining boundary states —
-    never concatenating the (multi-GB at config-5 scale) pointer tables.
-    """
-    NL, _ = sym_all.shape
-    K = logA_l.shape[0]
-    d0 = (jnp.where(first[:, None], jnp.broadcast_to(logPi_f, (NL, K)),
-                    logA_l[entries])
-          + logBT_l[sym_all[:, 0]])
-    # chunk bound: keep the gathered emissions transient <= 64 MB
-    Cp2 = min(_CHUNK, max(8, (64 * 1024 * 1024) // (NL * K * 4)))
-    # recompute-on-backtrack when the walk supports the shape: the NL-lane
-    # scan is VPU-bound and drops its argmax bookkeeping (~60% of the
-    # per-cell work); bit-identical paths (algorithms/fused.py)
-    recompute = argmax_walk_supported(NL, K)
-    scan_fn = maxplus_scan_deltas if recompute else maxplus_scan
-
-    def run_chunk2(dd, c0):
-        sym = jax.lax.dynamic_slice(sym_all, (0, c0), (NL, Cp2))
-        emits = jnp.transpose(logBT_l[sym], (1, 0, 2))
-        return scan_fn(logA_l, emits, dd, interpret=interpret)
-
-    parts = []
-    d = d0
-    n_full = (Lseg - 1) // Cp2
-    if n_full:
-        d, stacked = jax.lax.scan(run_chunk2, d, 1 + Cp2 * jnp.arange(n_full))
-        parts.append(stacked.reshape(n_full * Cp2, NL, K))
-    rem = (Lseg - 1) - n_full * Cp2
-    if rem:
-        c0 = 1 + n_full * Cp2
-        sym = sym_all[:, c0:c0 + rem]
-        emits = jnp.transpose(logBT_l[sym], (1, 0, 2))
-        d, ptrs = scan_fn(logA_l, emits, d, interpret=interpret)
-        parts.append(ptrs)
-
-    # one kernel walks all NL lanes (vmap-of-pallas_call is Mosaic-illegal
-    # on the scalar block); segments here are EQUAL length — no mask
-    if recompute:
-        logAT_l = jnp.transpose(logA_l)
-        walk = lambda pt, st: argmax_walk_pallas(pt, logAT_l, st,
-                                                 interpret=interpret)
-    else:
-        walk = partial(backtrack_pallas_batched, interpret=interpret)
-    state = exits
-    pieces = []
-    for ptr_part in reversed(parts):
-        walked = walk(ptr_part, state)
-        pieces.append(walked[:, 1:])
-        state = walked[:, 0]
-    pieces.append(state[:, None])
-    return jnp.concatenate(pieces[::-1], axis=1)  # (NL, Lseg)
-
-
 def _flash_decode_pipelined(mesh, logA, logBT, logPi, ys, L: int, spd: int,
-                            Lseg: int, mb: int, use_kernel: bool,
-                            interpret: bool):
+                            Lseg: int, mb: int, use_kernel: bool | str):
     n_data, n_seq, n_state = (mesh.shape[a] for a in AXES)
     Bs, T = ys.shape
     K = logA.shape[0]
@@ -232,11 +149,7 @@ def _flash_decode_pipelined(mesh, logA, logBT, logPi, ys, L: int, spd: int,
 
         def local_matvec(delta):
             """(NL, K) carry -> local (NL, Kd) scores + global argmax."""
-            if use_kernel:
-                return maxplus_step_block(delta, logA_l, interpret=interpret)
-            scores = delta[:, :, None] + logA_l[None]
-            return (jnp.max(scores, axis=1),
-                    jnp.argmax(scores, axis=1).astype(jnp.int32))
+            return mp.maxplus_lanes(delta, logA_l, use_kernel)
 
         def step_local(delta, sym):
             """Full trellis step: returns (delta' (NL,K), ptr (NL,K))."""
@@ -262,96 +175,15 @@ def _flash_decode_pipelined(mesh, logA, logBT, logPi, ys, L: int, spd: int,
                 [ag(bptr_l)[:, None, :],
                  jnp.zeros((mb, spd - 1, K), jnp.int32)], axis=1)
 
-            if use_kernel and n_state == 1:
-                def fold_chunk(pl_, x):
-                    row, rec = x
-                    return fold_one(pl_, row, rec), None
+            def stepf(carry, x):
+                dd, pl_ = carry
+                sym, rec = x
+                dn, ptr = step_local(dd, sym)
+                return (dn, fold_one(pl_, ptr, rec)), None
 
-                def scan_group(dd, c0s):
-                    """Pallas-only inner scan: stack the group's ptr rows."""
-                    def one(dd, c0):
-                        sym = jax.lax.dynamic_slice(ys_blk, (0, c0),
-                                                    (mb, _CHUNK))
-                        emits = jnp.transpose(logBT_l[sym], (1, 0, 2))
-                        return maxplus_scan(logA_l, emits, dd,
-                                            interpret=interpret)
-                    return jax.lax.scan(one, dd, c0s)
-
-                n_full = (L - 1) // _CHUNK
-                # stacked-pointer transient bound (~1 GB per group)
-                g_c = max(1, (1 << 30) // (_CHUNK * mb * K * 4))
-                if n_seq == 1:
-                    # Fold-free phase 1.  Interleaving the scan kernel with
-                    # the plane-fold's XLA gathers deterministically
-                    # crashes the TPU worker at K=16384, L>=32768 (isolated:
-                    # scan-only OK, fold-only OK, combined/grouped/barrier
-                    # all die — results/ROUND3.md).  With one block there
-                    # is no cross-block chain: β (plane 0) is never read,
-                    # and the interior anchors are the backtracked path at
-                    # the segment boundaries — the same pointer rows drive
-                    # fold and walk, so the values are bit-identical
-                    # (algorithms.flash.phase1_anchors_pallas, same
-                    # identity).  The walk is the Pallas backtrack kernel:
-                    # no XLA gather touches the scan's outputs.
-                    parts = []
-                    for g0 in range(0, n_full, g_c):
-                        gc = min(g_c, n_full - g0)
-                        c0s = 1 + _CHUNK * (g0 + jnp.arange(gc))
-                        d, ptrs_g = scan_group(d, c0s)  # (gc, C, mb, K)
-                        parts.append(ptrs_g.reshape(gc * _CHUNK, mb, K))
-                    rem = (L - 1) - n_full * _CHUNK
-                    if rem:
-                        c0 = 1 + n_full * _CHUNK
-                        sym = ys_blk[:, c0:c0 + rem]
-                        emits = jnp.transpose(logBT_l[sym], (1, 0, 2))
-                        d, ptrs = maxplus_scan(logA_l, emits, d,
-                                               interpret=interpret)
-                        parts.append(ptrs)
-                    state = jnp.argmax(d, axis=-1).astype(jnp.int32)
-                    pieces = []
-                    for pt in reversed(parts):
-                        w = backtrack_pallas_batched(pt, state,
-                                                     interpret=interpret)
-                        pieces.append(w[:, 1:])
-                        state = w[:, 0]
-                    path = jnp.concatenate([state[:, None]] + pieces[::-1],
-                                           axis=1)  # (mb, L)
-                    if spd > 1:
-                        anchors = path[:, Lseg - 1:(spd - 1) * Lseg:Lseg]
-                        planes = jnp.concatenate(
-                            [jnp.zeros((mb, 1, K), jnp.int32),  # β unused
-                             jnp.broadcast_to(anchors[:, :, None],
-                                              (mb, spd - 1, K))], axis=1)
-                    else:
-                        planes = jnp.zeros((mb, 1, K), jnp.int32)
-                    return d, planes
-                for g0 in range(0, n_full, g_c):
-                    gc = min(g_c, n_full - g0)
-                    c0s = 1 + _CHUNK * (g0 + jnp.arange(gc))
-                    d, ptrs_g = scan_group(d, c0s)  # (gc, C, mb, K)
-                    rec_g = rec_sched[g0 * _CHUNK:(g0 + gc) * _CHUNK]
-                    planes, _ = jax.lax.scan(
-                        fold_chunk, planes,
-                        (ptrs_g.reshape(gc * _CHUNK, mb, K),
-                         rec_g.reshape(gc * _CHUNK, spd)))
-                rem = (L - 1) - n_full * _CHUNK
-                if rem:
-                    c0 = 1 + n_full * _CHUNK
-                    sym = ys_blk[:, c0:c0 + rem]
-                    emits = jnp.transpose(logBT_l[sym], (1, 0, 2))
-                    d, ptrs = maxplus_scan(logA_l, emits, d, interpret=interpret)
-                    planes, _ = jax.lax.scan(
-                        fold_chunk, planes, (ptrs, rec_sched[c0 - 1:c0 - 1 + rem]))
-            else:
-                def stepf(carry, x):
-                    dd, pl_ = carry
-                    sym, rec = x
-                    dn, ptr = step_local(dd, sym)
-                    return (dn, fold_one(pl_, ptr, rec)), None
-
-                (d, planes), _ = jax.lax.scan(
-                    stepf, (d, planes),
-                    (jnp.transpose(ys_blk[:, 1:]), rec_sched))
+            (d, planes), _ = jax.lax.scan(
+                stepf, (d, planes),
+                (jnp.transpose(ys_blk[:, 1:]), rec_sched))
             return d, planes
 
         def tick(carry_delta, c):
@@ -376,7 +208,7 @@ def _flash_decode_pipelined(mesh, logA, logBT, logPi, ys, L: int, spd: int,
 
         # ---- anchor resolution: backward chain over blocks ----------------
         # argmax locally BEFORE gathering: only the last seq device's final
-        # argmax is consumed, so ship (n_mb, mb) int32 over ICI instead of
+        # argmax is consumed, so ship (n_mb, mb) int32 between cards instead of
         # the full (n_mb, mb, K) fp32 score tensor (K x less traffic)
         j_local = jnp.argmax(my_finals, axis=-1).astype(jnp.int32)
         if n_seq > 1:
@@ -413,21 +245,14 @@ def _flash_decode_pipelined(mesh, logA, logBT, logPi, ys, L: int, spd: int,
             sym0 = seg_sym[:, :, 0].reshape(NL)
             first = (r == 0) & (jnp.arange(NL) % spd == 0)
 
-            if use_kernel and n_state == 1:
-                paths = _phase2_segments_kernel(
-                    logA_l, logBT_l, logPi_f, seg_sym.reshape(NL, Lseg),
-                    entries, exits, first, Lseg, interpret)
-            else:
-                d0 = (jnp.where(first[:, None],
-                                jnp.broadcast_to(logPi_f, (NL, K)),
-                                ag(logA_l[entries]))
-                      + ag(logBT_l[sym0]))
-                syms = jnp.transpose(seg_sym[:, :, 1:].reshape(NL, Lseg - 1))
-                _, ptrs = jax.lax.scan(
-                    lambda dd, sym: step_local(dd, sym), d0, syms)
-                # backtrack chains exactly like _phase2_segments_kernel
-                walked = jax.vmap(mp.backtrack, in_axes=(1, 0))(ptrs, exits)
-                paths = walked  # (NL, Lseg)
+            d0 = (jnp.where(first[:, None],
+                            jnp.broadcast_to(logPi_f, (NL, K)),
+                            ag(logA_l[entries]))
+                  + ag(logBT_l[sym0]))
+            syms = jnp.transpose(seg_sym[:, :, 1:].reshape(NL, Lseg - 1))
+            _, ptrs = jax.lax.scan(
+                lambda dd, sym: step_local(dd, sym), d0, syms)
+            paths = jax.vmap(mp.backtrack, in_axes=(1, 0))(ptrs, exits)
             vals = paths.reshape(mb, L)
             out = jax.lax.dynamic_update_slice(
                 jnp.zeros((mb, T), jnp.int32), vals, (0, r * L))
@@ -458,7 +283,7 @@ def _flash_decode_pipelined(mesh, logA, logBT, logPi, ys, L: int, spd: int,
 # ===========================================================================
 
 def _ag(x):
-    """Rebuild a full K-vector from per-device state shards (tiled ICI gather)."""
+    """Rebuild a full K-vector from per-device state shards (tiled gather)."""
     return jax.lax.all_gather(x, "state", tiled=True)
 
 
@@ -590,7 +415,7 @@ def flash_decode_sharded(mesh: Mesh, logA, logB, logPi, ys,
                          microbatch: int = 1,
                          pipeline: bool | str = "auto",
                          use_kernel: bool | str = "auto"):
-    """Batched multi-chip FLASH decode.
+    """Batched multi-card FLASH decode.
 
     Args:
       mesh: a (data, seq, state) mesh from :func:`make_mesh`.
@@ -604,8 +429,8 @@ def flash_decode_sharded(mesh: Mesh, logA, logB, logPi, ys,
       pipeline: "auto" uses the pipelined seq-parallel path whenever the
         shape divides evenly (T % n_seq == 0, equal segments); False forces
         the legacy replicated-phase-1 path; True errors if unsupported.
-      use_kernel: run the Pallas kernels inside shard_map ("auto": only on
-        the TPU backend — CPU tests take the bit-identical XLA path).
+      use_kernel: the Triton step for every local step
+        (``ops.maxplus.use_kernel_for``: "auto", True or False).
 
     Returns:
       (Bs, T) int32 decoded paths — bit-identical to ``algorithms.flash``
@@ -622,7 +447,7 @@ def flash_decode_sharded(mesh: Mesh, logA, logB, logPi, ys,
         raise ValueError(f"T={T} too short for seq axis {n_seq} "
                          f"(each seq device needs a >=2-step segment)")
     if num_segments is not None:
-        # clamp like the single-chip decoder (flash_decode: N <= T//2),
+        # clamp like the single-card decoder (flash_decode: N <= T//2),
         # rounded down to the required multiple of the seq axis
         N = min(int(num_segments), max(1, T // 2))
         num_segments = max(n_seq, (N // n_seq) * n_seq)
@@ -636,14 +461,6 @@ def flash_decode_sharded(mesh: Mesh, logA, logB, logPi, ys,
         return _flash_decode_legacy(mesh, logA, logB, logPi, ys, num_segments)
 
     L, spd, Lseg = plan
-    if use_kernel == "auto":
-        use_kernel = jax.default_backend() == "tpu"
-    if use_kernel:
-        ok = (kernel_supported(K) if n_state == 1
-              else step_block_supported(K, K // n_state))
-        if not ok:
-            use_kernel = False
-    interpret = bool(use_kernel) and jax.default_backend() != "tpu"
     logBT = jnp.transpose(logB)  # (M, K), column-sharded over 'state'
     return _flash_decode_pipelined(mesh, logA, logBT, logPi, ys, L, spd, Lseg,
-                                   int(microbatch), bool(use_kernel), interpret)
+                                   int(microbatch), use_kernel)

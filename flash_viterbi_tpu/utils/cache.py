@@ -4,8 +4,8 @@
 structures keyed by (K, T, prob, beam_width) and reloads them on rerun.
 Here the expensive precomputations are the log tables (float64 ``log`` over
 K² probabilities) and the SIEVE adjacency structures; both cache to
-``.npz``/pickle files keyed the same way.  XLA executables are cached by
-JAX's own compilation cache when configured.
+``.npz``/pickle files keyed the same way.  Compiled executables go to
+JAX's persistent compilation cache (:func:`enable_compile_cache`).
 """
 
 from __future__ import annotations
@@ -18,6 +18,32 @@ import numpy as np
 from ..models.hmm import HMM, LogHMM
 
 DEFAULT_DIR = os.environ.get("FLASH_VITERBI_CACHE", ".fv_cache")
+
+#: the checkout holding this package; the compile cache defaults under it
+_CHECKOUT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def compile_cache_dir() -> str:
+    """``JAX_COMPILATION_CACHE_DIR`` when set, else ``<checkout>/.jax_cache``.
+
+    The default is a fixed path (the path is part of the cache key, so a
+    directory named after a PID, a time or a temporary name never hits)."""
+    return (os.environ.get("JAX_COMPILATION_CACHE_DIR")
+            or os.path.join(_CHECKOUT, ".jax_cache"))
+
+
+def enable_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache; returns its directory.
+
+    With ``JAX_COMPILATION_CACHE_DIR`` set JAX already reads it, and no
+    other directory is set here."""
+    import jax
+
+    path = compile_cache_dir()
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir", path)
+    return path
 
 
 def _key(prefix: str, **params) -> str:

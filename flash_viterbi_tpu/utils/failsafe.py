@@ -1,10 +1,10 @@
 """Failure detection / re-dispatch (SURVEY.md §5 aux subsystem).
 
 The reference has no recovery at all (``perror`` without exit on fopen/
-malloc failure, ``FLASH_Viterbi_multithread.c:67-99``).  The TPU analog of
-its "blocks are idempotent" property: every decode in this framework is a
-pure function of host-resident inputs, so a failed dispatch (preempted
-device, tunnel drop, transient XLA UNAVAILABLE) can simply be re-issued —
+malloc failure, ``FLASH_Viterbi_multithread.c:67-99``).  The device
+analog of its "blocks are idempotent" property: every decode in this
+framework is a pure function of host-resident inputs, so a failed dispatch
+(preempted device, transient XLA UNAVAILABLE) can simply be re-issued —
 there is no partial state to repair.  :func:`with_redispatch` is that
 policy; ``decode(..., retries=n)`` applies it to the public entry point.
 
@@ -21,7 +21,7 @@ from typing import Callable, TypeVar
 T = TypeVar("T")
 
 # Transient-looking failure types: XLA runtime errors (device unavailable,
-# preemption, tunnel drops surface as RuntimeError/JaxRuntimeError).
+# preemption surface as RuntimeError/JaxRuntimeError).
 def _transient_types():
     import jax
 

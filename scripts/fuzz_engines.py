@@ -9,7 +9,7 @@ beam-fallout paths) and asserts, per fixture:
 * ``sieve`` / ``sieve_dag`` — device engine == host scheduler;
 * ``sieve_bs`` batched (``decode_many``) == per-sequence decodes.
 
-Runs on CPU (no TPU contention).  Usage:
+Runs on the CPU.  Usage:
     python scripts/fuzz_engines.py [n_rounds] [seed0]
 """
 

@@ -131,7 +131,7 @@ def one_round(seed):
     m = sieve_mp(hmm.A, hmm.B, hmm.Pi, y, numerics="f32")
     check("sieve_mp-oracle", (r.path == m).all(), f"{ctx} pad={pad}")
 
-    # sharded path vs single-chip (virtual mesh), random mesh shape
+    # sharded path vs single-card (virtual mesh), random mesh shape
     if seed % 3 == 0:
         from flash_viterbi_tpu.parallel.sharded import (flash_decode_sharded,
                                                         make_mesh)
@@ -156,7 +156,7 @@ def one_round(seed):
                                        num_segments=segs_sh,
                                        microbatch=mb,
                                        pipeline="auto" if seed % 2 else False)
-            # invariant: bit-equal to single-chip flash with the same
+            # invariant: bit-equal to single-card flash with the same
             # segment count (NOT vanilla — flash may tie-flip, see
             # docs/DESIGN.md §1)
             want_sh = fvt.decode(hmm, y, algorithm="flash", pad_to=8,

@@ -121,7 +121,7 @@ def one_round(seed):
         check("sieve_mp-oracle",
               (np.asarray(r.path) == np.asarray(m)[:T]).all(), ctx)
 
-    # batched decode (N-lane kernel path on TPU, vmap on CPU) must be
+    # batched decode (one lane per sequence in the N-lane step) must be
     # bit-equal to per-sequence decodes — including on tie-flip fixtures
     if seed % 3 == 0:
         from flash_viterbi_tpu.parallel.batch import decode_batch
@@ -136,7 +136,7 @@ def one_round(seed):
         check("batch==per-seq",
               (rb.path[0] == p1).all() and (rb.path[1] == p2).all(), ctx)
 
-    # sharded pipelined vs same-segment single-chip flash
+    # sharded pipelined vs same-segment single-card flash
     if seed % 2 == 0:
         from flash_viterbi_tpu.parallel.sharded import (
             flash_decode_sharded,

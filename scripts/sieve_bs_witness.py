@@ -13,8 +13,8 @@ heavyweight witnesses run ONCE, wall time be damned:
 2. the fp32 framework mirror (``oracle.framework.sieve_bs``) — the
    decoder's own bit-exactness yardstick, extended past its bench cap.
 
-Run:  nohup python scripts/sieve_bs_witness.py > results/sieve_bs_witness.log 2>&1 &
-(one TPU process at a time; the C binary and the mirror are CPU-side)
+Run:  python scripts/sieve_bs_witness.py > chiprun_out/sieve_bs_witness.log 2>&1
+(one JAX process per card; the C binary and the mirror are CPU-side)
 """
 
 import json
@@ -76,8 +76,8 @@ def main():
     # KNOWN OUTCOME at this config: the reference itself SEGFAULTS —
     # beam fallout leaves a subproblem's median unrecorded and
     # ``find_int(previous_medians_a, last, 0)`` dereferences NULL after
-    # printing "INT ERROR" (SIEVE-BS.c:220,568; ASan-verified 2026-08-19,
-    # results/ROUND3.md).  That is exactly the case this framework's
+    # printing "INT ERROR" (SIEVE-BS.c:220,568; ASan-verified).  That is
+    # exactly the case this framework's
     # sentinel totality-extension decodes instead of crashing (the Python
     # reference raises KeyError there too, sieve_beam_search.py:88).  The
     # crash is recorded as a result, not an error.

@@ -38,7 +38,7 @@ def main():
 
     # ---- mesh-layout contract (parallel/multihost.py:11-19) -------------
     # every (seq, state) plane must be process-local: the per-step state
-    # collectives ride ICI only, never DCN
+    # collectives stay inside one process, never cross DCN
     arr = np.asarray(mesh.devices, dtype=object)
     for d in range(arr.shape[0]):
         procs = {dev.process_index for dev in arr[d].ravel()}

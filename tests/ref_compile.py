@@ -36,6 +36,11 @@ def have_gcc() -> bool:
     return shutil.which("gcc") is not None
 
 
+def have_reference() -> bool:
+    """The reference checkout these helpers compile from is present."""
+    return os.path.isdir(REF)
+
+
 _GLIB_SHIM = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                           "csrc", "glibshim")
 

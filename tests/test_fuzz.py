@@ -28,20 +28,13 @@ def test_exact_algorithms_agree(K, M, T, prob, seed):
     for alg, kw in [
         ("vanilla", {}),
         ("checkpoint", {}),
-        ("checkpoint", {"use_pallas": True}),
         ("fused", {}),
-        ("fused", {"use_pallas": True}),
         ("flash", {"num_segments": 5}),
         ("flash", {"num_segments": 5, "mode": "lean"}),
         ("flash", {"num_segments": 5, "mode": "lean", "lean_leaf": 0}),
         ("flash", {"num_segments": 3, "mode": "lean", "lean_leaf": 4}),
         ("flash_bs", {"beam_width": K, "num_segments": 5}),
-        # full-beam Pallas path: the round-4 beam kernel (single-slab DMA,
-        # packed-code extraction) must equal vanilla exactly at B == K
-        ("flash_bs", {"beam_width": K, "num_segments": 5,
-                      "use_pallas": True}),
         ("beam", {"beam_width": K}),
-        ("beam", {"beam_width": K, "use_pallas": True}),
     ]:
         r = fvt.decode(hmm, y, algorithm=alg, pad_to=1, warmup=False, **kw)
         np.testing.assert_array_equal(r.path, want,
@@ -107,7 +100,7 @@ def test_dynamic_median_family_fuzz(seed):
                 for p in oracle_bs(hmm.A, hmm.B, hmm.Pi, y, beam_width=bw)]
     except ReferenceUndefined:
         # reference crashes on this input (beam pruned every median
-        # candidate); the TPU decoder must still be total
+        # candidate); the device decoder must still be total
         got = sieve_bs_decode(*args, beam_width=bw)
         assert len(got) >= 1 and all(len(p) == 2 for p in got)
     else:
@@ -118,7 +111,7 @@ def test_dynamic_median_family_fuzz(seed):
     # on arbitrary fixtures (the f64 oracle legitimately differs on
     # permuted-path ties — see algorithms/sieve.py docstring; tie-free
     # reference fidelity is pinned by the fixture tests in
-    # test_tpu_algorithms.py / test_sieve.py)
+    # sieve/beam decoder tests and test_sieve.py)
     from flash_viterbi_tpu.oracle.framework import sieve_bs_mp as mirror_bs_mp
 
     wantp = mirror_bs_mp(hmm.A, hmm.B, hmm.Pi, y, beam_width=bw)
@@ -130,7 +123,7 @@ def test_dynamic_median_family_fuzz(seed):
 
 @pytest.mark.parametrize("seed", DYN_SEEDS[:3])
 def test_sieve_dynamic_fuzz(seed):
-    """Randomized shapes through the TPU sieve (dynamic median, full
+    """Randomized shapes through the device sieve (dynamic median, full
     state space) vs its oracle — median pairs must agree exactly."""
     import jax.numpy as jnp
 

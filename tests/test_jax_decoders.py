@@ -97,27 +97,17 @@ def test_lean_leaf_hybrid(small_problem, leaf):
 
 
 def test_auto_selection_rules():
-    """auto picks the measured-fastest family per shape and respects the
-    memory budget by falling back to leaner modes."""
+    """auto's preference order per shape (no dispatch ceiling: one long
+    sweep is one program) and the memory budget's fallback to leaner
+    modes."""
     from flash_viterbi_tpu.algorithms.auto import choose, device_working_set
 
     assert choose(4096, 256) == ("flash", {"num_segments": 16})
-    assert choose(1024, 256) == ("fused", {})  # VMEM-resident K
-    # long T: fused + chunk-streamed backtrack measured 301 G vs
-    # checkpoint's 146-223 G (round-3 hw queue) while the (T, K) pointer
-    # table fits LONG_T_PTR_BUDGET; beyond it, checkpoint (no table)
+    assert choose(1024, 256) == ("flash", {"num_segments": 16})
+    # long T: fused while its (T, K) pointer table fits the budget,
+    # checkpoint (no table at all) beyond it — config-5 shapes included
     assert choose(1024, 65536)[0] == "fused"
-    # config-5-class: one sweep alone exceeds the dispatch ceiling — only
-    # the host-phased decoder can run (ceiling off -> checkpoint, the
-    # leanest single-dispatch candidate)
-    assert choose(16384, 65536)[0] == "flash_long"
-    from flash_viterbi_tpu.algorithms import auto as auto_mod
-    old = auto_mod.DISPATCH_CEILING_S
-    try:
-        auto_mod.DISPATCH_CEILING_S = 0.0
-        assert choose(16384, 65536)[0] == "checkpoint"
-    finally:
-        auto_mod.DISPATCH_CEILING_S = old
+    assert choose(16384, 65536)[0] == "checkpoint"
     assert choose(1024, 8)[0] == "fused"
     assert choose(4096, 256, beam_width=64)[0] == "flash_bs"
     # a tiny budget can't shrink the beamed engine further: flash_bs is
@@ -129,17 +119,16 @@ def test_auto_selection_rules():
     assert (name, kw) != ("flash", {"num_segments": 8})
     assert device_working_set(name, kw, 4096, 256) < flash_mem
     # impossible budget: falls back to the candidate with the smallest
-    # honest working set, never a crash.  With implementation-honest
-    # scratch models that is checkpoint at short T (hybrid lean's leaf
-    # pointer tables outweigh √T snapshots), and it must be minimal.
+    # honest working set, never a crash — checkpoint at short T (hybrid
+    # lean's leaf pointer tables outweigh √T snapshots), and it is minimal
     name, kw = choose(4096, 256, memory_budget_bytes=1)
     cands = ["flash", "checkpoint", "fused"]
     ws = {n: device_working_set(n, {"mode": "lean"} if n == "flash" else {},
                                 4096, 256) for n in cands}
     assert name == min(ws, key=ws.get) == "checkpoint"
     # caller overrides reach the budget filter: pure lean (lean_leaf=0)
-    # re-scans with up to T/4 live intervals — a bigger streamed working
-    # set than the hybrid's capped leaf pass
+    # re-scans with up to T/4 live intervals — a bigger working set than
+    # the hybrid's capped leaf pass
     ws_h = device_working_set("flash", {"mode": "lean"}, 4096, 256)
     ws_p = device_working_set("flash", {"mode": "lean", "lean_leaf": 0}, 4096, 256)
     assert ws_p > ws_h
@@ -149,17 +138,14 @@ def test_auto_selection_rules():
 
 def test_auto_working_set_models_real_decode():
     """The budget filter must model the scratch the decode actually runs:
-    checkpoint's snapshot spacing is the capped long-T step, not isqrt."""
+    checkpoint keeps floor(sqrt(T)) snapshot spacing."""
     from flash_viterbi_tpu.algorithms.auto import device_working_set
-    from flash_viterbi_tpu.algorithms.checkpoint import snapshot_step
 
     K, T = 16384, 65536
-    step = snapshot_step(T)
-    assert step == 1024  # the long-T cap checkpoint_decode_pallas uses
+    step = 256  # floor(sqrt(65536)), what checkpoint_decode runs
     got = device_working_set("checkpoint", {}, K, T)
     assert got == (T // step + 1) * K * 4 + step * K * 4
-    # the config-5 figure the round-1 model underestimated ~2x: ~71 MB
-    assert got > 60 * 1024 * 1024
+    assert got == device_working_set("checkpoint", {"step": step}, K, T)
 
 
 def test_auto_memory_reporting_tracks_shape():
@@ -189,3 +175,22 @@ def test_auto_decodes_and_matches_vanilla(small_problem):
     got = decode(hmm, y, algorithm="auto", pad_to=1, warmup=False)
     np.testing.assert_array_equal(got.path, want.path)
     assert got.memory_bytes > 0
+
+
+@pytest.mark.parametrize("K,M,T,N,seed", [
+    (96, 10, 64, 4, 11), (96, 10, 64, 2, 11), (96, 10, 64, 1, 11),
+    (96, 10, 64, 8, 11), (64, 8, 48, 4, 5), (128, 10, 96, 4, 13),
+])
+def test_long_shapes_checkpoint_and_lean(K, M, T, N, seed):
+    """The two-pass √T scheme (checkpoint) and flash lean at the segment
+    counts and lengths the long-sequence decoders are used with: both
+    equal vanilla, as flash pointer mode does."""
+    from flash_viterbi_tpu.models.generate import make_sparse_hmm
+
+    hmm, y = make_sparse_hmm(K=K, M=M, T=T, prob=0.25, seed=seed)
+    v = decode(hmm, y, algorithm="vanilla", pad_to=8, warmup=False)
+    for alg, kw in [("checkpoint", {}), ("checkpoint", {"step": 7}),
+                    ("flash", {"num_segments": N, "mode": "lean"}),
+                    ("flash", {"num_segments": N})]:
+        r = decode(hmm, y, algorithm=alg, pad_to=8, warmup=False, **kw)
+        np.testing.assert_array_equal(r.path, v.path, err_msg=f"{alg} {kw}")

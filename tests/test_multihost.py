@@ -1,6 +1,6 @@
 """2-process DCN-style test: the pipelined shard_map decode over a global
 mesh spanning two OS processes (jax.distributed on the CPU backend), the
-standard stand-in for a multi-host TPU pod (SURVEY.md §4)."""
+standard stand-in for a multi-host deployment (SURVEY.md §4)."""
 
 import os
 

@@ -12,9 +12,14 @@ from flash_viterbi_tpu.models.generate import make_sparse_hmm
 from flash_viterbi_tpu.oracle import reference as oref
 from flash_viterbi_tpu.utils.io import save_dataset
 
-from .ref_compile import build_and_run, build_and_run_full, have_gcc
+from .ref_compile import (build_and_run, build_and_run_full, have_gcc,
+                          have_reference)
 
-pytestmark = pytest.mark.skipif(not have_gcc(), reason="gcc not available")
+pytestmark = [
+    pytest.mark.skipif(not have_gcc(), reason="gcc not available"),
+    pytest.mark.skipif(not have_reference(),
+                       reason="reference checkout not mounted"),
+]
 
 K, M, T, PROB, SEED = 64, 12, 32, 0.3, 7
 

@@ -67,12 +67,9 @@ def test_pipelined_matches_single_chip(small_problem, shape, segs, mb):
 
 @pytest.mark.parametrize("shape", [(1, 1, 1), (2, 1, 1), (1, 2, 1),
                                    (1, 1, 2), (1, 2, 2)])
-def test_pipelined_kernel_interpret(small_problem, shape):
-    """Pallas kernels inside shard_map (fused scan at n_state=1, rectangular
-    step kernel at n_state>1), interpret mode on the CPU mesh.  The
-    n_seq==1 shapes take the fold-free phase 1 (anchors from the Pallas
-    walk — the XLA plane fold interleaved with the scan kernel crashes the
-    TPU worker at config-5 scale) and must stay bit-identical."""
+def test_pipelined_kernel_interpret(small_problem, shape, interpret_kernel):
+    """The Triton step inside shard_map (on the local (K, K/n_state)
+    column block when n_state > 1), interpret mode on the CPU mesh."""
     hmm, y = small_problem
     logA, logB, logPi = _tables(hmm)
     ys = jnp.stack([jnp.asarray(y, jnp.int32)] * 4)

@@ -21,7 +21,7 @@ from flash_viterbi_tpu.oracle import reference as oref
 from flash_viterbi_tpu.oracle.sieve import sieve_dynamic, sieve_mp
 from flash_viterbi_tpu.utils.io import save_dataset
 
-from .ref_compile import build_and_run, have_gcc, have_glib
+from .ref_compile import build_and_run, have_gcc, have_glib, have_reference
 
 REF_PY = "/root/reference/Base_line/Python implementations"
 
@@ -40,6 +40,7 @@ def _loglik(hmm, y, path):
     (32, 8, 17, 0.4, 1),
     (48, 6, 33, 0.25, 11),
 ])
+@pytest.mark.skipif(not have_reference(), reason="reference checkout not mounted")
 def test_sieve_mp_c_bit_parity(tmp_path, K, M, T, prob, seed):
     hmm, y = make_sparse_hmm(K=K, M=M, T=T, prob=prob, seed=seed)
     d = tmp_path / "data"; d.mkdir()
@@ -50,6 +51,7 @@ def test_sieve_mp_c_bit_parity(tmp_path, K, M, T, prob, seed):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.skipif(not have_reference(), reason="reference checkout not mounted")
 @pytest.mark.skipif(not have_gcc(), reason="gcc not available")
 def test_sieve_mp_c_bit_parity_nonuniform_pi(tmp_path):
     """The C top-level call passes the model Pi (SIEVE-Mp.c:499,
@@ -90,6 +92,7 @@ def test_sieve_mp_close_to_vanilla(small_problem):
     (64, 12, 32, 0.3, 7, 16),
     (32, 6, 17, 0.4, 1, 4),
 ])
+@pytest.mark.skipif(not have_reference(), reason="reference checkout not mounted")
 @pytest.mark.parametrize("name", ["sieve_bs", "sieve_bs_mp"])
 def test_sieve_bs_c_bit_parity(tmp_path, name, K, M, T, prob, seed, bw):
     """Oracles vs the compiled reference C binaries (built against real
@@ -109,6 +112,7 @@ def test_sieve_bs_c_bit_parity(tmp_path, name, K, M, T, prob, seed, bw):
     np.testing.assert_array_equal(cpath, flat)
 
 
+@pytest.mark.skipif(not have_reference(), reason="reference checkout not mounted")
 @pytest.mark.skipif(not (have_gcc() and have_glib()),
                     reason="gcc or glib/shim not available")
 @pytest.mark.parametrize("name", ["sieve_bs", "sieve_bs_mp"])
@@ -165,6 +169,7 @@ def _load_ref_module(name):
     (64, 12, 32, 0.3, 7, 16),
     (32, 6, 17, 0.4, 1, 4),
 ])
+@pytest.mark.skipif(not have_reference(), reason="reference checkout not mounted")
 def test_sieve_bs_matches_reference_python(K, M, T, prob, seed, bw):
     from flash_viterbi_tpu.oracle.sieve_bs import build_adjacency, sieve_bs, sieve_bs_mp
 
@@ -186,6 +191,7 @@ def test_sieve_bs_matches_reference_python(K, M, T, prob, seed, bw):
         assert got == want, method
 
 
+@pytest.mark.skipif(not have_reference(), reason="reference checkout not mounted")
 def test_beam_search_matches_reference_python():
     from flash_viterbi_tpu.oracle.sieve_bs import beam_search, build_adjacency
 
@@ -205,6 +211,7 @@ def test_beam_search_matches_reference_python():
     assert wll == gll
 
 
+@pytest.mark.skipif(not have_reference(), reason="reference checkout not mounted")
 def test_sieve_dag_matches_reference_python():
     from flash_viterbi_tpu.models.generate import make_dag_hmm
     from flash_viterbi_tpu.oracle.sieve import sieve_dag
@@ -223,6 +230,7 @@ def test_sieve_dag_matches_reference_python():
     assert got == want
 
 
+@pytest.mark.skipif(not have_reference(), reason="reference checkout not mounted")
 def test_sieve_dynamic_matches_reference_python(small_problem):
     hmm, y = small_problem
     K = hmm.K

@@ -1,4 +1,4 @@
-"""TPU-native sieve_mp and beam decoders: oracle parity and invariants."""
+"""sieve_mp and beam decoders: oracle parity and invariants."""
 
 import numpy as np
 import pytest
@@ -10,19 +10,17 @@ from flash_viterbi_tpu.oracle.sieve import sieve_mp
 def test_sieve_mp_matches_oracle_f32(small_problem):
     hmm, y = small_problem
     want = sieve_mp(hmm.A, hmm.B, hmm.Pi, y, numerics="f32")
-    r = decode(hmm, y, algorithm="sieve_mp", pad_to=1, warmup=False,
-               use_pallas=False)
+    r = decode(hmm, y, algorithm="sieve_mp", pad_to=1, warmup=False)
     np.testing.assert_array_equal(r.path, want)
 
 
-def test_sieve_mp_pallas_and_padding_invariance(small_problem):
+def test_sieve_mp_pallas_and_padding_invariance(small_problem, request):
+    """The Triton step (interpreted) and padding leave the path unchanged."""
     hmm, y = small_problem
-    a = decode(hmm, y, algorithm="sieve_mp", pad_to=1, warmup=False,
-               use_pallas=False)
-    b = decode(hmm, y, algorithm="sieve_mp", pad_to=1, warmup=False,
-               use_pallas=True)
-    c = decode(hmm, y, algorithm="sieve_mp", pad_to=128, warmup=False,
-               use_pallas=False)
+    a = decode(hmm, y, algorithm="sieve_mp", pad_to=1, warmup=False)
+    c = decode(hmm, y, algorithm="sieve_mp", pad_to=128, warmup=False)
+    request.getfixturevalue("interpret_kernel")
+    b = decode(hmm, y, algorithm="sieve_mp", pad_to=1, warmup=False)
     np.testing.assert_array_equal(a.path, b.path)
     np.testing.assert_array_equal(a.path, c.path)
 
@@ -31,10 +29,9 @@ def test_sieve_mp_unpruned_matches_on_dense(small_problem):
     """Without degenerate reachability, pruning only removes -inf states;
     prune=False must give the same path."""
     hmm, y = small_problem
-    a = decode(hmm, y, algorithm="sieve_mp", pad_to=1, warmup=False,
-               use_pallas=False)
+    a = decode(hmm, y, algorithm="sieve_mp", pad_to=1, warmup=False)
     b = decode(hmm, y, algorithm="sieve_mp", pad_to=1, warmup=False,
-               use_pallas=False, prune=False)
+               prune=False)
     np.testing.assert_array_equal(a.path, b.path)
 
 
@@ -50,8 +47,7 @@ def test_sieve_mp_nonuniform_pi_matches_oracle():
     Pi = rng.uniform(0.05, 1.0, hmm.K)
     hmm = dataclasses.replace(hmm, Pi=Pi / Pi.sum())
     want = sieve_mp(hmm.A, hmm.B, hmm.Pi, y, numerics="f32")
-    r = decode(hmm, y, algorithm="sieve_mp", pad_to=1, warmup=False,
-               use_pallas=False)
+    r = decode(hmm, y, algorithm="sieve_mp", pad_to=1, warmup=False)
     np.testing.assert_array_equal(r.path, want)
 
 
@@ -61,8 +57,7 @@ def test_sieve_mp_odd_lengths(T):
 
     hmm, y = make_sparse_hmm(K=48, M=8, T=T, prob=0.3, seed=3)
     want = sieve_mp(hmm.A, hmm.B, hmm.Pi, y, numerics="f32")
-    r = decode(hmm, y, algorithm="sieve_mp", pad_to=1, warmup=False,
-               use_pallas=False)
+    r = decode(hmm, y, algorithm="sieve_mp", pad_to=1, warmup=False)
     np.testing.assert_array_equal(r.path, want)
 
 
@@ -72,7 +67,7 @@ def test_sieve_mp_odd_lengths(T):
     (32, 6, 17, 0.4, 1, 4),
 ])
 def test_sieve_bs_mp_matches_oracle(K, M, T, prob, seed, bw):
-    """TPU sieve_bs_mp vs the reference-Python-verified oracle (identical
+    """sieve_bs_mp vs the reference-Python-verified oracle (identical
     off exact float64 ties; these fixtures have none)."""
     from flash_viterbi_tpu.models.generate import make_sparse_hmm
     from flash_viterbi_tpu.oracle.sieve_bs import sieve_bs_mp as oracle_bs_mp
@@ -91,7 +86,7 @@ def test_sieve_bs_mp_matches_oracle(K, M, T, prob, seed, bw):
     (32, 6, 17, 0.4, 1, 4),
 ])
 def test_sieve_bs_matches_oracle(K, M, T, prob, seed, bw):
-    """TPU sieve_bs (dynamic median) vs the reference-Python-verified
+    """sieve_bs (dynamic median) vs the reference-Python-verified
     oracle — median pairs must agree exactly (fixtures have no fp ties)."""
     import jax.numpy as jnp
 
@@ -213,7 +208,7 @@ def test_beam_monotone_quality(small_problem):
 
 
 # ---------------------------------------------------------------------------
-# sieve (dynamic median) and sieve_dag TPU decoders
+# sieve (dynamic median) and sieve_dag decoders
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("K,M,T,prob,seed,b", [
@@ -222,7 +217,7 @@ def test_beam_monotone_quality(small_problem):
     (32, 6, 17, 0.4, 1, 3),
 ])
 def test_sieve_dynamic_matches_oracle(K, M, T, prob, seed, b):
-    """TPU sieve (dynamic median) vs the reference-Python-verified oracle —
+    """sieve (dynamic median) vs the reference-Python-verified oracle —
     median pairs must agree exactly (fixtures have no fp ties)."""
     import jax.numpy as jnp
 

@@ -147,8 +147,9 @@ def test_dp_divergence_tolerance_scales():
     from flash_viterbi_tpu.oracle.validate import (
         dp_divergence_tolerance_f64, score_tolerance_f64)
 
-    # hardware-calibrated regime (results/ROUND3.md): observed legitimate
-    # gaps 31.5 (K=1024) / 39.5 (K=16384) nats at T=65536 must pass, with
+    # calibrated regime (oracle.validate.dp_divergence_tolerance_f64):
+    # observed legitimate gaps 31.5 (K=1024) / 39.5 (K=16384) nats at
+    # T=65536 must pass, with
     # ~4x headroom but not unbounded
     tol = dp_divergence_tolerance_f64(65536, -659486.0)
     assert 39.5 < tol < 400.0
